@@ -1,0 +1,144 @@
+"""Configurable N-D U-Net, as in ``voxelmorph_tpu/models/unet.py``.
+
+Encoder of conv(k3) + LeakyReLU(0.2) blocks with max-pool downsampling,
+decoder with nearest upsampling and skip concatenation, then the surplus
+full-resolution "final convs"; ``nb_upsample_skips`` emits the output at
+reduced resolution. Module names follow the JAX package's parameter paths
+(``enc_conv_0_0``, ``dec_conv_3_0``, ``dec_final_conv_0``, each with a
+``conv``), so a JAX checkpoint maps onto the state dict key for key.
+
+Inside the network tensors are channels-first ``(B, C, *S)``, the layout of
+``torch.nn.functional.conv3d``. Parameters are float32; ``dtype`` is the
+compute type (bfloat16 for the committed full-width checkpoint).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..py.utils import default_unet_features
+
+__all__ = ["Unet", "ConvBlock", "build_feature_lists"]
+
+
+def build_feature_lists(nb_features=None, nb_levels=None, feat_mult=1,
+                        nb_conv_per_level=1) -> Tuple[list, list]:
+    """Resolve the (encoder, decoder) feature lists from the flexible spec."""
+    if nb_features is None:
+        nb_features = default_unet_features()
+    if isinstance(nb_features, int):
+        if nb_levels is None:
+            raise ValueError("must provide unet nb_levels if nb_features is an integer")
+        feats = np.round(nb_features * feat_mult ** np.arange(nb_levels)).astype(int)
+        enc = np.repeat(feats[:-1], nb_conv_per_level).tolist()
+        dec = np.repeat(np.flip(feats), nb_conv_per_level).tolist()
+        return enc, dec
+    if nb_levels is not None:
+        raise ValueError("cannot use nb_levels if nb_features is not an integer")
+    enc, dec = nb_features
+    return list(enc), list(dec)
+
+
+class ConvBlock(nn.Module):
+    """conv(k3, SAME) + LeakyReLU(0.2), computed in ``dtype``.
+
+    The bias is added after the convolution's output is rounded to ``dtype``,
+    as flax's Conv does, so that a bfloat16 model rounds where the JAX
+    package's does.
+    """
+
+    def __init__(self, in_features: int, features: int, ndims: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        self.ndims = ndims
+        self.dtype = dtype
+        self.conv = getattr(nn, f"Conv{ndims}d")(in_features, features, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = getattr(F, f"conv{self.ndims}d")
+        out = conv(x.to(self.dtype), self.conv.weight.to(self.dtype), padding=1)
+        bias = self.conv.bias.to(self.dtype).view(-1, *([1] * self.ndims))
+        return F.leaky_relu(out + bias, 0.2)
+
+
+def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int) -> torch.Tensor:
+    for d in range(ndims):
+        x = torch.repeat_interleave(x, factor, dim=d + 2)
+    return x
+
+
+def _max_pool(x: torch.Tensor, window: int, ndims: int) -> torch.Tensor:
+    """Non-overlapping max pool (VALID: odd edges are dropped)."""
+    return getattr(F, f"max_pool{ndims}d")(x, window, window)
+
+
+class Unet(nn.Module):
+    """N-D encoder-decoder with skip connections on ``(B, C, *S)`` tensors.
+
+    ``in_features`` is the channel count of the input; ``out_features`` that
+    of the output. The other arguments follow the JAX Unet.
+    """
+
+    def __init__(self, ndims: int, in_features: int, nb_features=None,
+                 nb_levels: Optional[int] = None, max_pool=2, feat_mult: int = 1,
+                 nb_conv_per_level: int = 1, nb_upsample_skips: int = 0,
+                 dtype=torch.float32):
+        super().__init__()
+        enc_nf, dec_nf = build_feature_lists(nb_features, nb_levels, feat_mult,
+                                             nb_conv_per_level)
+        self.ndims = ndims
+        self.dtype = dtype
+        self.nb_conv_per_level = nb_conv_per_level
+        self.nb_upsample_skips = nb_upsample_skips
+        nb_dec_convs = len(enc_nf)
+        self.final_convs = dec_nf[nb_dec_convs:]
+        dec_nf = dec_nf[:nb_dec_convs]
+        self.nb_levels = nb_dec_convs // nb_conv_per_level + 1
+        self.max_pool = ([max_pool] * self.nb_levels if isinstance(max_pool, int)
+                         else list(max_pool))
+
+        def block(name, cin, nf):
+            self.add_module(name, ConvBlock(cin, nf, ndims, dtype=dtype))
+            return nf
+
+        ch, skips = in_features, []
+        for level in range(self.nb_levels - 1):
+            for conv in range(nb_conv_per_level):
+                ch = block(f"enc_conv_{level}_{conv}", ch,
+                           enc_nf[level * nb_conv_per_level + conv])
+            skips.append(ch)
+        for level in range(self.nb_levels - 1):
+            real_level = self.nb_levels - level - 2
+            for conv in range(nb_conv_per_level):
+                ch = block(f"dec_conv_{real_level}_{conv}", ch,
+                           dec_nf[level * nb_conv_per_level + conv])
+            if level < self.nb_levels - 1 - nb_upsample_skips:
+                ch += skips.pop()
+        for num, nf in enumerate(self.final_convs):
+            ch = block(f"dec_final_conv_{num}", ch, nf)
+        self.out_features = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ncpl = self.nb_conv_per_level
+        enc_layers = []
+        last = x.to(self.dtype)
+        for level in range(self.nb_levels - 1):
+            for conv in range(ncpl):
+                last = getattr(self, f"enc_conv_{level}_{conv}")(last)
+            enc_layers.append(last)
+            last = _max_pool(last, self.max_pool[level], self.ndims)
+        for level in range(self.nb_levels - 1):
+            real_level = self.nb_levels - level - 2
+            for conv in range(ncpl):
+                last = getattr(self, f"dec_conv_{real_level}_{conv}")(last)
+            if level < self.nb_levels - 1 - self.nb_upsample_skips:
+                last = _upsample_nearest(last, self.max_pool[real_level], self.ndims)
+                last = torch.cat([last, enc_layers.pop()], dim=1)
+        for num in range(len(self.final_convs)):
+            last = getattr(self, f"dec_final_conv_{num}")(last)
+        return last

@@ -1,0 +1,163 @@
+"""N-D interpolation: the general warp gather and separable resizing.
+
+Counterpart of ``voxelmorph_tpu/ops/interp.py``. ``interpn`` samples a volume
+at continuous ij locations with the JAX package's semantics: coordinates are
+clamped to ``[0, dim - 1]`` before the floor (so samples past the edge take
+the edge value), unless ``fill_value`` is given, in which case any location
+outside ``[0, dim - 1]`` in any dimension gets ``fill_value``. It is a plain
+tensor gather, not a kernel: the JAX package leaves it to XLA too.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["ndgrid", "interpn", "resize"]
+
+
+def ndgrid(shape: Sequence[int], dtype=torch.float32, device=None) -> torch.Tensor:
+    """ij-indexed coordinate grid of shape ``(*shape, N)``."""
+    axes = [torch.arange(s, dtype=dtype, device=device) for s in shape]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def _flatten_strides(spatial: Sequence[int]) -> list:
+    strides, acc = [], 1
+    for s in reversed(spatial):
+        strides.append(acc)
+        acc *= int(s)
+    return list(reversed(strides))
+
+
+def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
+            fill_value: Optional[float] = None) -> torch.Tensor:
+    """Interpolate an N-D volume at continuous ij locations.
+
+    Args:
+      vol: ``(*spatial, C)`` or ``(*spatial,)``.
+      loc: ``(*out_shape, N)`` locations, ``N == len(spatial)``.
+      interp_method: 'linear' (multilinear) or 'nearest'.
+      fill_value: value for out-of-domain samples; None clamps to the edge.
+
+    Returns:
+      ``(*out_shape, C)`` (or ``(*out_shape,)`` if vol had no channel axis).
+    """
+    nd = loc.shape[-1]
+    squeeze_channel = vol.dim() == nd
+    if squeeze_channel:
+        vol = vol[..., None]
+    if vol.dim() != nd + 1:
+        raise ValueError(
+            f"vol rank {vol.dim()} incompatible with {nd}-D locations "
+            f"(expected {nd} spatial dims + 1 channel dim)")
+    spatial = vol.shape[:-1]
+    nch = vol.shape[-1]
+    compute_dtype = loc.dtype if loc.is_floating_point() else torch.float32
+    loc = loc.to(compute_dtype)
+    if not vol.is_floating_point():
+        vol = vol.to(compute_dtype)
+
+    out_shape = loc.shape[:-1]
+    loc_dims = [loc[..., d].reshape(-1) for d in range(nd)]
+    vol_flat = vol.reshape(-1, nch)
+    strides = _flatten_strides(spatial)
+    max_loc = [int(s) - 1 for s in spatial]
+
+    if interp_method == "nearest":
+        lin = functools.reduce(torch.add, [
+            torch.round(l).long().clamp(0, m) * s
+            for l, m, s in zip(loc_dims, max_loc, strides)])
+        out = vol_flat[lin]
+    elif interp_method == "linear":
+        idx0 = [torch.floor(l).long().clamp(0, m) for l, m in zip(loc_dims, max_loc)]
+        w1 = [l.clamp(0.0, m) - i.to(compute_dtype)
+              for l, m, i in zip(loc_dims, max_loc, idx0)]
+        w0 = [1.0 - w for w in w1]
+        # the +1 corner past the top edge carries weight exactly 0 (the
+        # clamped coordinate sits on the edge voxel); read the edge voxel
+        idx1 = [(i + 1).clamp(max=m) for i, m in zip(idx0, max_loc)]
+        out = None
+        for c in range(2 ** nd):
+            bits = [(c >> d) & 1 for d in range(nd)]
+            lin = functools.reduce(torch.add, [
+                (idx1[d] if b else idx0[d]) * strides[d] for d, b in enumerate(bits)])
+            w = functools.reduce(torch.mul, [w1[d] if b else w0[d]
+                                             for d, b in enumerate(bits)])
+            term = vol_flat[lin] * w[:, None]
+            out = term if out is None else out + term
+    else:
+        raise ValueError(
+            f"interp_method must be 'linear' or 'nearest', got {interp_method}")
+
+    if fill_value is not None:
+        valid = functools.reduce(torch.logical_and, [
+            (l >= 0) & (l <= m) for l, m in zip(loc_dims, max_loc)])
+        out = torch.where(valid[:, None], out,
+                          torch.as_tensor(fill_value, dtype=out.dtype, device=out.device))
+
+    out = out.reshape(*out_shape, nch)
+    return out[..., 0] if squeeze_channel else out
+
+
+def _resize_matrix(n_in: int, n_out: int, factor: float, interp_method: str) -> np.ndarray:
+    """(n_out, n_in) interpolation matrix sampling at arange(n_out)/factor,
+    edge-clamped: the separable building block of ``resize``."""
+    coords = np.arange(n_out, dtype=np.float64) / factor
+    coords = np.clip(coords, 0, n_in - 1)
+    W = np.zeros((n_out, n_in), dtype=np.float32)
+    if interp_method == "nearest":
+        idx = np.clip(np.round(coords).astype(int), 0, n_in - 1)
+        W[np.arange(n_out), idx] = 1.0
+    else:
+        lo = np.clip(np.floor(coords).astype(int), 0, n_in - 1)
+        hi = np.clip(lo + 1, 0, n_in - 1)
+        w_hi = (coords - lo).astype(np.float32)
+        rows = np.arange(n_out)
+        # accumulate (lo may equal hi at the top edge)
+        np.add.at(W, (rows, lo), 1.0 - w_hi)
+        np.add.at(W, (rows, hi), w_hi)
+    return W
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_on(n_in: int, n_out: int, factor: float, interp_method: str,
+                      device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``_resize_matrix`` as a tensor on ``device``, cached: the serving path
+    asks for the same few matrices on every call."""
+    with torch.inference_mode(False):
+        W = _resize_matrix(n_in, n_out, factor, interp_method)
+        return torch.from_numpy(W).to(device, dtype)
+
+
+def resize(vol: torch.Tensor, zoom_factor, interp_method: str = "linear",
+           new_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Resize a single (non-batched) ``(*S, C)`` volume by a zoom factor.
+
+    The output size is ``ceil(dim * factor)`` per spatial dim, sampled at
+    ``arange(new_dim) / factor`` in input coordinates (edge-clamped), as one
+    small dense matrix product per axis. The last axis is channels.
+    """
+    spatial = vol.shape[:-1]
+    nd = len(spatial)
+    if not isinstance(zoom_factor, (list, tuple)):
+        zoom_factor = [float(zoom_factor)] * nd
+    if new_shape is None:
+        new_shape = [int(math.ceil(s * f)) for s, f in zip(spatial, zoom_factor)]
+    if tuple(new_shape) == tuple(spatial) and all(f == 1 for f in zoom_factor):
+        return vol
+
+    out = vol
+    for axis in range(nd):
+        n_in, n_out = out.shape[axis], int(new_shape[axis])
+        if n_in == n_out and zoom_factor[axis] == 1:
+            continue
+        dt = torch.promote_types(torch.float32, out.dtype)
+        W = _resize_matrix_on(n_in, n_out, float(zoom_factor[axis]), interp_method,
+                              out.device, dt)
+        out = torch.movedim(torch.tensordot(W, out.to(dt), dims=([1], [axis])), 0, axis)
+    return out
