@@ -1,10 +1,12 @@
-"""VxmDense, the dense unsupervised registration network, at serving time.
+"""VxmDense, the dense unsupervised registration network.
 
 Counterpart of ``voxelmorph_tpu/models/vxm.py``: concat(source, target) ->
-U-Net -> flow conv [-> log-sigma head] -> rescale to the svf and integration
-resolutions -> scaling and squaring -> rescale to full resolution -> warp.
-Inputs and outputs are channels-last, ``(B, *S, C)`` images and
-``(B, *S, N)`` flows, as in the JAX package.
+U-Net -> flow conv [-> log-sigma head -> sample] -> rescale to the svf and
+integration resolutions -> scaling and squaring -> rescale to full
+resolution -> warp. Inputs and outputs are channels-last, ``(B, *S, C)``
+images and ``(B, *S, N)`` flows, as in the JAX package. The module's
+training mode (``model.train()`` / ``model.eval()``) plays the part of the
+JAX call's ``train`` argument.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 from ..ops import warp as warp_ops
 from .unet import Unet
 
-__all__ = ["VxmDense", "rescale_flow"]
+__all__ = ["VxmDense", "rescale_flow", "sample_normal"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -32,16 +34,23 @@ def rescale_flow(flow: torch.Tensor, factor) -> torch.Tensor:
     return warp_ops.rescale_dense_transform(flow, factor)
 
 
+def sample_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard normal noise of ``shape`` for the probabilistic flow sample."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
 class VxmDense(nn.Module):
-    """Dense unsupervised registration network (serving forward).
+    """Dense unsupervised registration network.
 
     The constructor takes the JAX module's fields, so a checkpoint's config
-    rebuilds the network. ``forward(source, target)`` returns a dict with
+    rebuilds the network; ``generator`` draws the initial weights as flax
+    initialises them (he-normal convs with zero bias, the flow head
+    N(0, 1e-5), the log-sigma head N(0, 1e-10) with bias -10).
+    ``forward(source, target, generator=None)`` returns a dict with
     y_source, (y_target,) svf, preint_flow, postint_flow, pos_flow,
     (neg_flow,) (flow_params,) unet_out and reg. With ``use_probs`` the flow
-    is the mean of the predicted distribution (the serving-time sample with
-    zero noise). Parameters keep PyTorch's default init: the weights come
-    from a checkpoint (``models.modelio.load_model``).
+    is, in training mode, a sample of the predicted distribution with noise
+    drawn from ``generator``, and in eval mode its mean.
     """
 
     def __init__(self, inshape: Sequence[int], nb_unet_features=None,
@@ -51,7 +60,7 @@ class VxmDense(nn.Module):
                  use_probs: bool = False, src_feats: int = 1, trg_feats: int = 1,
                  fill_value: Optional[float] = None, reg_field: str = "preintegrated",
                  hyper: bool = False, dtype=torch.float32, fast_warp_phases: int = 0,
-                 fast_warp_halo: int = 2):
+                 fast_warp_halo: int = 2, generator: Optional[torch.Generator] = None):
         super().__init__()
         ndims = len(inshape)
         if ndims != 3:
@@ -87,13 +96,21 @@ class VxmDense(nn.Module):
         self.unet = Unet(ndims, src_feats + trg_feats, nb_features=nb_unet_features,
                          nb_levels=nb_unet_levels, feat_mult=unet_feat_mult,
                          nb_conv_per_level=nb_unet_conv_per_level,
-                         nb_upsample_skips=nb_upsample_skips, dtype=dtype)
+                         nb_upsample_skips=nb_upsample_skips, dtype=dtype,
+                         generator=generator)
         nf = self.unet.out_features
         self.flow = nn.Conv3d(nf, ndims, 3, padding=1)
+        with torch.no_grad():
+            self.flow.weight.normal_(0.0, 1e-5, generator=generator)
+            self.flow.bias.zero_()
         if use_probs:
             self.log_sigma = nn.Conv3d(nf, ndims, 3, padding=1)
+            with torch.no_grad():
+                self.log_sigma.weight.normal_(0.0, 1e-10, generator=generator)
+                self.log_sigma.bias.fill_(-10.0)
 
-    def forward(self, source: torch.Tensor, target: torch.Tensor) -> dict:
+    def forward(self, source: torch.Tensor, target: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> dict:
         x = torch.cat([source, target], dim=-1).movedim(-1, 1)
         x = self.unet(x).float()
         outputs = {"unet_out": x.movedim(1, -1)}
@@ -102,6 +119,9 @@ class VxmDense(nn.Module):
             logsigma = F.conv3d(x, self.log_sigma.weight, self.log_sigma.bias,
                                 padding=1).movedim(1, -1)
             outputs["flow_params"] = torch.cat([flow, logsigma], dim=-1)
+            if self.training:
+                eps = sample_normal(flow.shape, generator, flow.device)
+                flow = flow + torch.exp(logsigma / 2.0) * eps
 
         # rescale to the exact svf grid if the unet grid differs (rounding)
         pre_svf_size = np.array(flow.shape[1:-1])
@@ -132,10 +152,13 @@ class VxmDense(nn.Module):
             if self.bidir:
                 neg_flow = rescale_flow(neg_flow, factor)
 
-        # serving warps the image in the model's compute dtype, as JAX does
+        # training warps the image in float32, serving in the model's compute
+        # dtype, as JAX does
+        img_dtype = torch.float32 if self.training else self.dtype
+
         def warp(img, w):
             return warp_ops.transform_batched(
-                img.to(self.dtype), w, fill_value=self.fill_value).float()
+                img.to(img_dtype), w, fill_value=self.fill_value).float()
 
         outputs["y_source"] = warp(source, pos_flow)
         outputs["pos_flow"] = pos_flow

@@ -4,8 +4,9 @@ Counterpart of ``voxelmorph_tpu/ops/interp.py``. ``interpn`` samples a volume
 at continuous ij locations with the JAX package's semantics: coordinates are
 clamped to ``[0, dim - 1]`` before the floor (so samples past the edge take
 the edge value), unless ``fill_value`` is given, in which case any location
-outside ``[0, dim - 1]`` in any dimension gets ``fill_value``. It is a plain
-tensor gather, not a kernel: the JAX package leaves it to XLA too.
+outside ``[0, dim - 1]`` in any dimension gets ``fill_value``. Its autograd
+gradients are those of the JAX package, at the volume's edges too. It is a
+plain tensor gather, not a kernel: the JAX package leaves it to XLA too.
 """
 
 from __future__ import annotations
@@ -32,6 +33,22 @@ def _flatten_strides(spatial: Sequence[int]) -> list:
         strides.append(acc)
         acc *= int(s)
     return list(reversed(strides))
+
+
+def _clamp_with_jax_grad(loc: torch.Tensor, max_loc: int, edge_grad: float) -> torch.Tensor:
+    """``loc`` clamped to ``[0, max_loc]``, with the derivative that the JAX
+    package's ``interpn`` gives the clamp: 1 strictly inside, 0 strictly
+    beyond, and ``edge_grad`` at exactly 0 or ``max_loc``. A single-channel
+    volume takes JAX's hand-written gather VJP, which passes the whole
+    gradient at the edge (``edge_grad`` 1); a wider one takes autodiff of
+    ``jnp.clip``, whose max/min split a tie in half (``edge_grad`` 0.5)."""
+    clamped = loc.clamp(0.0, max_loc)
+    if not loc.requires_grad:
+        return clamped
+    inside = ((loc > 0) & (loc < max_loc)).to(loc.dtype)
+    on_edge = ((loc == 0) | (loc == max_loc)).to(loc.dtype)
+    slope = inside + edge_grad * on_edge
+    return clamped.detach() + slope * (loc - loc.detach())
 
 
 def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
@@ -75,17 +92,24 @@ def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
         out = vol_flat[lin]
     elif interp_method == "linear":
         idx0 = [torch.floor(l).long().clamp(0, m) for l, m in zip(loc_dims, max_loc)]
-        w1 = [l.clamp(0.0, m) - i.to(compute_dtype)
+        # the clamped coordinate; its gradient is the JAX package's (see
+        # _clamp_with_jax_grad): 1 inside, 0 strictly beyond the edges, and
+        # at a coordinate exactly on 0 or dim - 1 the value for its nch
+        edge_grad = 1.0 if nch == 1 else 0.5
+        w1 = [_clamp_with_jax_grad(l, m, edge_grad) - i.to(compute_dtype)
               for l, m, i in zip(loc_dims, max_loc, idx0)]
         w0 = [1.0 - w for w in w1]
-        # the +1 corner past the top edge carries weight exactly 0 (the
-        # clamped coordinate sits on the edge voxel); read the edge voxel
-        idx1 = [(i + 1).clamp(max=m) for i, m in zip(idx0, max_loc)]
+        lin0 = functools.reduce(torch.add, [i * s for i, s in zip(idx0, strides)])
+        # the +1 corner of a coordinate on the top edge carries weight
+        # exactly 0; it is read, as in the JAX package's corner table, at
+        # the next voxel in flat order (wrapping at the end), which only its
+        # coordinate gradient sees: append the wrapped rows once
+        wrap = torch.arange(sum(strides), device=vol_flat.device) % vol_flat.shape[0]
+        vol_flat = torch.cat([vol_flat, vol_flat[wrap]])
         out = None
         for c in range(2 ** nd):
             bits = [(c >> d) & 1 for d in range(nd)]
-            lin = functools.reduce(torch.add, [
-                (idx1[d] if b else idx0[d]) * strides[d] for d, b in enumerate(bits)])
+            lin = lin0 + sum(b * s for b, s in zip(bits, strides))
             w = functools.reduce(torch.mul, [w1[d] if b else w0[d]
                                              for d, b in enumerate(bits)])
             term = vol_flat[lin] * w[:, None]

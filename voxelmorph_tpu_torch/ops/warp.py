@@ -1,10 +1,13 @@
 """Dense warps: apply, rescale and integrate displacement fields.
 
-Counterpart of ``voxelmorph_tpu/ops/warp.py`` for the serving path. A warp
-whose displacements are all within a small halo runs the bounded-warp kernel
-(``ops.warp_bounded``); any other warp runs the general gather
-(``ops.interp.interpn``). The choice is made per call on the host from
+Counterpart of ``voxelmorph_tpu/ops/warp.py`` for the serving and training
+paths. A warp whose displacements are all within a small halo runs the
+bounded-warp kernel (``ops.warp_bounded``); any other warp runs the general
+gather (``ops.interp.interpn``). The choice is made per call on the host from
 ``max|shift|``, as the JAX package's ``lax.switch`` makes it on the device.
+Every tier is differentiable in the volume and the shift: the kernel tiers
+through the bounded warp's autograd Function (its backward kernel on CUDA),
+the gather through autograd of ``interpn``.
 """
 
 from __future__ import annotations

@@ -1,15 +1,17 @@
-"""Bounded-displacement trilinear warp: CUDA kernel wrapper and plain version.
+"""Bounded-displacement trilinear warp: CUDA kernels, plain versions, autograd.
 
-Counterpart of ``voxelmorph_tpu/ops/pallas_interp.py`` (forward only). For
+Counterpart of ``voxelmorph_tpu/ops/pallas_interp.py``. For
 ``|shift| <= halo`` the trilinear warp is exactly
 
     out[x] = sum_{o in [-halo, halo]^3} prod_d max(0, 1 - |d_d(x) - o_d|) * vol[x + o]
 
 with ``d = clamp(x + shift, 0, dim - 1) - x`` and ``vol`` edge-padded.
 ``windowed_transform`` computes that sum of shifted slices with plain tensor
-ops (the port of ``voxelmorph_tpu.ops.warp.windowed_transform``);
-``warp_bounded`` runs the hand-written CUDA kernel ``csrc/warp_bounded.cu``
-on CUDA tensors and the plain version on CPU tensors.
+ops (the port of ``voxelmorph_tpu.ops.warp.windowed_transform``), and
+``warp_bounded_bwd_plain`` its VJP as the Pallas backward kernel defines it
+(the port of ``_warp_cf_bwd_ref``). ``warp_bounded`` is differentiable: on
+CUDA tensors its forward and backward run the hand-written kernels of
+``csrc/warp_bounded.cu``, on CPU tensors the two plain versions.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 from .. import _build
 from .interp import ndgrid
 
-__all__ = ["windowed_transform", "warp_bounded"]
+__all__ = ["windowed_transform", "warp_bounded_bwd_plain", "warp_bounded",
+           "warp_bounded_bwd"]
 
 _MAX_CHANNELS = 4
 
@@ -44,12 +47,7 @@ def windowed_transform(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) ->
     coords = torch.minimum(torch.clamp(grid + loc_shift, min=0.0), max_loc)
     d = coords - grid  # effective shift after clamping, |d| <= halo
 
-    # edge padding by clamped index
-    vol_p = vol
-    for axis, s in enumerate(spatial):
-        idx = torch.arange(-halo, s + halo, device=vol.device).clamp(0, s - 1)
-        vol_p = vol_p.index_select(first + axis, idx)
-
+    vol_p = _pad(vol, spatial, halo, first, "edge")
     out = torch.zeros_like(vol)
     lead = (slice(None),) * first
     for off in itertools.product(range(-halo, halo + 1), repeat=nd):
@@ -61,6 +59,21 @@ def windowed_transform(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) ->
                            for a in range(nd))
         out = out + vol_p[idx] * w[..., None]
     return out
+
+
+def _pad(x: torch.Tensor, spatial, halo: int, first: int, mode: str) -> torch.Tensor:
+    """Pad the spatial axes (from axis ``first``) by ``halo`` voxels on each
+    side: "edge" repeats the edge voxel (by clamped index), "zero" adds 0."""
+    for axis, s in enumerate(spatial):
+        if mode == "edge":
+            idx = torch.arange(-halo, s + halo, device=x.device).clamp(0, s - 1)
+            x = x.index_select(first + axis, idx)
+        else:
+            shape = list(x.shape)
+            shape[first + axis] = halo
+            zeros = x.new_zeros(shape)
+            x = torch.cat([zeros, x, zeros], dim=first + axis)
+    return x
 
 
 def _check(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> None:
@@ -82,40 +95,159 @@ def _check(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> None:
         raise ValueError(f"vol on {vol.device} and shift on {loc_shift.device}")
 
 
+def _tri(t: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - torch.abs(t), min=0.0)
+
+
+def _dtri(t: torch.Tensor) -> torch.Tensor:
+    """Derivative of ``_tri``: -sign(t) where |t| < 1, else 0 (0 at t = 0)."""
+    return torch.where(torch.abs(t) < 1.0, -torch.sign(t), torch.zeros_like(t))
+
+
+def warp_bounded_bwd_plain(vol: torch.Tensor, loc_shift: torch.Tensor, g: torch.Tensor,
+                           halo: int):
+    """VJP of the bounded warp, as the Pallas backward kernel computes it.
+
+    vol, g: ``(B, *S, C)``; loc_shift: ``(B, *S, 3)``. Returns (dvol, dshift)
+    in the promoted floating dtype of the inputs (at least float32):
+
+        dvol[u]     = sum_o w_o(u - o) g(u - o)   (zero where u - o is outside)
+        dshift_a(x) = [0 < x_a + shift_a < dim_a - 1]
+                      * sum_o dw_o/dd_a(x) <vol[x + o], g(x)>
+
+    The strict interior mask gives a zero dshift where ``x + shift`` lies
+    exactly on 0 or dim - 1, as the Pallas kernel does; autograd of
+    ``windowed_transform`` passes a gradient there.
+    """
+    dt = torch.promote_types(torch.promote_types(vol.dtype, loc_shift.dtype),
+                             torch.promote_types(g.dtype, torch.float32))
+    vol, loc_shift, g = vol.to(dt), loc_shift.to(dt), g.to(dt)
+    spatial = vol.shape[1:-1]
+    grid = ndgrid(spatial, dtype=dt, device=vol.device)
+    max_loc = torch.tensor([s - 1 for s in spatial], dtype=dt, device=vol.device)
+    raw = grid + loc_shift
+    d = torch.minimum(torch.clamp(raw, min=0.0), max_loc) - grid
+    interior = (raw > 0.0) & (raw < max_loc)
+
+    def window(x_p, off):
+        return x_p[(slice(None),) + tuple(slice(halo + o, halo + o + s)
+                                          for o, s in zip(off, spatial))]
+
+    vol_p = _pad(vol, spatial, halo, 1, "edge")
+    dvol = torch.zeros_like(vol)
+    dshift = torch.zeros_like(loc_shift)
+    for off in itertools.product(range(-halo, halo + 1), repeat=3):
+        t = [d[..., a] - off[a] for a in range(3)]
+        wz, wy, wx = (_tri(x) for x in t)
+        w = wz * wy * wx
+        # dvol[u] = sum_o (w_o g)(u - o): the weighted cotangent, zero-padded
+        # and read at the flipped offset (edge taps carry zero weight)
+        dvol = dvol + window(_pad(w[..., None] * g, spatial, halo, 1, "zero"),
+                             tuple(-o for o in off))
+        gv = torch.sum(g * window(vol_p, off), dim=-1)
+        dshift = dshift + torch.stack([
+            gv * _dtri(t[0]) * wy * wx,
+            gv * wz * _dtri(t[1]) * wx,
+            gv * wz * wy * _dtri(t[2]),
+        ], dim=-1)
+    dshift = torch.where(interior, dshift, torch.zeros_like(dshift))
+    return dvol, dshift
+
+
+def _launch(name: str, tensors, halo: int) -> None:
+    """Launch the kernel entry point ``name`` of ``csrc/warp_bounded.cu`` on
+    the current stream: ``tensors`` are its float32 inputs then outputs, the
+    first shaped (B, D, H, W, C). Raises if the launch fails."""
+    B, D, H, W, C = tensors[0].shape
+    fn = getattr(_build.load("warp_bounded"), name)
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, int(halo), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} CUDA kernel failed to launch: CUDA error {err} "
+                           f"(B={B}, D={D}, H={H}, W={W}, C={C}, halo={halo})")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def _warp_fwd_cuda(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> torch.Tensor:
+    """Launch the forward kernel; float32 output."""
+    v, s = _f32(vol), _f32(loc_shift)
+    out = torch.empty_like(v)
+    _launch("vxm_warp_bounded_fwd", (v, s, out), halo)
+    warp_bounded.launches += 1
+    return out
+
+
+class _WarpBounded(torch.autograd.Function):
+    """The bounded warp with the Pallas kernel's VJP (``_warp_bounded_cf``)."""
+
+    @staticmethod
+    def forward(ctx, vol, loc_shift, halo):
+        ctx.halo = halo
+        ctx.save_for_backward(vol, loc_shift)
+        out_dtype = torch.promote_types(vol.dtype, loc_shift.dtype)
+        if vol.device.type == "cpu":
+            return windowed_transform(vol, loc_shift, halo).to(out_dtype)
+        return _warp_fwd_cuda(vol, loc_shift, halo).to(out_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        vol, loc_shift = ctx.saved_tensors
+        dvol, dshift = warp_bounded_bwd(vol, loc_shift, g, ctx.halo)
+        # each gradient in its input's dtype (the output was promoted)
+        return dvol.to(vol.dtype), dshift.to(loc_shift.dtype), None
+
+
 def warp_bounded(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> torch.Tensor:
     """Trilinear warp of vol (B, D, H, W, C) by loc_shift (B, D, H, W, 3),
     valid where ``|loc_shift| <= halo`` element-wise (the caller checks).
 
-    On CUDA tensors this launches the CUDA kernel (building it at first use)
-    and raises if the build or the launch fails; on CPU tensors it computes
-    ``windowed_transform``. The output has the promoted dtype of the inputs;
-    the kernel itself computes in float32. ``warp_bounded.launches`` counts
-    kernel launches.
+    Differentiable in both arguments, with the VJP of the Pallas kernel
+    (``warp_bounded_bwd``). On CUDA tensors the forward and the backward
+    launch their CUDA kernels (built at first use) and raise if the build or
+    a launch fails; on CPU tensors they run ``windowed_transform`` and
+    ``warp_bounded_bwd_plain``. The output has the promoted dtype of the
+    inputs; the kernels compute in float32. ``warp_bounded.launches`` counts
+    forward kernel launches.
     """
     _check(vol, loc_shift, halo)
-    out_dtype = torch.promote_types(vol.dtype, loc_shift.dtype)
-    if vol.device.type == "cpu":
-        return windowed_transform(vol, loc_shift, int(halo)).to(out_dtype)
-    if vol.device.type != "cuda":
+    if vol.device.type not in ("cpu", "cuda"):
         raise ValueError(f"warp_bounded runs on CUDA or CPU tensors, not {vol.device}")
-
-    v = vol.to(torch.float32).contiguous()
-    s = loc_shift.to(torch.float32).contiguous()
-    out = torch.empty_like(v)
-    B, D, H, W, C = v.shape
-    lib = _build.load("warp_bounded")
-    fn = lib.vxm_warp_bounded_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(v.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 B, D, H, W, C, int(halo), stream)
-    if err != 0:
-        raise RuntimeError(f"warp_bounded CUDA kernel failed to launch: CUDA error {err} "
-                           f"(B={B}, D={D}, H={H}, W={W}, C={C}, halo={halo})")
-    warp_bounded.launches += 1
-    return out.to(out_dtype)
+    return _WarpBounded.apply(vol, loc_shift, int(halo))
 
 
 warp_bounded.launches = 0
+
+
+def warp_bounded_bwd(vol: torch.Tensor, loc_shift: torch.Tensor, g: torch.Tensor,
+                     halo: int):
+    """(dvol, dshift), the VJP of ``warp_bounded`` for the cotangent ``g``.
+
+    On CUDA tensors this launches the backward kernel and raises if the
+    build or the launch fails; on CPU tensors it computes
+    ``warp_bounded_bwd_plain``. The kernel takes and returns float32.
+    ``warp_bounded_bwd.launches`` counts kernel launches.
+    """
+    _check(vol, loc_shift, halo)
+    if g.shape != vol.shape or g.device != vol.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} does not match vol "
+                         f"{tuple(vol.shape)} on {vol.device}")
+    if vol.device.type == "cpu":
+        return warp_bounded_bwd_plain(vol, loc_shift, g, int(halo))
+    if vol.device.type != "cuda":
+        raise ValueError(f"warp_bounded_bwd runs on CUDA or CPU tensors, not {vol.device}")
+    v, s = _f32(vol), _f32(loc_shift)
+    dvol, dshift = torch.empty_like(v), torch.empty_like(s)
+    _launch("vxm_warp_bounded_bwd", (v, s, _f32(g), dvol, dshift), halo)
+    warp_bounded_bwd.launches += 1
+    return dvol, dshift
+
+
+warp_bounded_bwd.launches = 0

@@ -1,8 +1,8 @@
 """Host-side numpy utilities that registration needs.
 
 The port's own copies of ``voxelmorph_tpu.py.utils.default_unet_features``,
-``load_volfile`` and ``save_volfile``, for NIfTI (.nii/.nii.gz), .npy and
-.npz volumes.
+``read_file_list``, ``load_volfile`` and ``save_volfile``, for NIfTI
+(.nii/.nii.gz), .npy and .npz volumes.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 
 from . import io as _io
 
-__all__ = ["default_unet_features", "load_volfile", "save_volfile"]
+__all__ = ["default_unet_features", "read_file_list", "load_volfile", "save_volfile"]
 
 
 def default_unet_features():
@@ -22,6 +22,12 @@ def default_unet_features():
         [16, 32, 32, 32],              # encoder
         [32, 32, 32, 32, 32, 16, 16],  # decoder
     ]
+
+
+def read_file_list(filename, prefix=None, suffix=None):
+    """Read a newline-separated list of files, with optional prefix/suffix."""
+    with open(filename) as f:
+        return [(prefix or "") + e + (suffix or "") for e in (line.strip() for line in f) if e]
 
 
 def load_volfile(filename, np_var="vol", add_batch_axis=False,
