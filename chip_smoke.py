@@ -8,28 +8,41 @@ Run from the root of the repository:
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
-     every CUDA kernel of the port built with nvcc from csrc/;
+     every CUDA kernel of the port built with nvcc from csrc/, all at once;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it and at stress shapes, with times
      beside the bound, the plain version and one PyTorch library call;
+  2b. the bounded-warp backward kernel against its plain version at phase
+     2's shapes, bit-equal across two launches, with times beside the bound,
+     the plain version and the backward of grid_sample;
+  2c. gradients through warp_bounded and integrate_vec_batched on CUDA
+     tensors (the backward kernel) against the same on the CPU;
+  2d. the conv kernel against its plain version at the full-width U-Net's
+     11 conv shapes, bfloat16 and float32, forward (both rounding orders)
+     and the input-gradient orientation, bit-equal across two launches, with
+     times beside the bound, the plain version and cuDNN's conv3d;
   3. the serving path end to end: the committed full-width VxmDense
      checkpoint (160x192x224, bfloat16) registers a synthetic smooth pair
      through build_register_fn; the kernel launch counts of that call must
      be nonzero, and its outputs must agree with the port's own bfloat16
      CPU run; then the same in float32 (TF32 off) against the port's own
      CPU run, and the bfloat16 outputs against the float32 ones;
-  2b. the bounded-warp backward kernel against its plain version at phase
-     2's shapes, bit-equal across two launches, with times beside the bound,
-     the plain version and the backward of grid_sample;
-  2c. gradients through warp_bounded and integrate_vec_batched on CUDA
-     tensors (the backward kernel) against the same on the CPU;
+  3b. serving with the conv kernel (set_pallas_conv(True), the JAX
+     package's VXM_PALLAS_CONV=1): 11 conv launches per register call, float32
+     kernel mode against float32 cuDNN mode, bfloat16 against float32;
+  3c. --fast-warp (enable_fast_warp) at full width: four halo-2 bounded
+     warps by the integration root for the moved image, the warp unchanged;
+     the card against the port's CPU run at 80x96x112;
   4. training at full width: the default recipe of scripts/train.py (MSE +
      Grad-l2, Adam 1e-4, float32) on VxmDense at 160x192x224 from seed 0:
      one step's loss and gradients through the kernels against the
      gather-only path, the card against the port's CPU run at 80x96x112,
      ten steps that lower the loss with the backward kernel launched in
      every step, the time per step and the peak memory; then three steps of
-     the committed checkpoint's own recipe (use_probs, NCC, KL, bfloat16).
+     the committed checkpoint's own recipe (use_probs, NCC, KL, bfloat16);
+  4b. training with the conv kernel: one step's loss and gradients against
+     cuDNN mode, then three steps that lower the loss, 21 conv launches per
+     step (11 forward, 10 input gradients).
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -55,11 +68,13 @@ from voxelmorph_tpu_torch import _build, losses
 from voxelmorph_tpu_torch.models.modelio import load_model
 from voxelmorph_tpu_torch.models.unet import ConvBlock
 from voxelmorph_tpu_torch.models.vxm import VxmDense
+from voxelmorph_tpu_torch.ops import conv3
 from voxelmorph_tpu_torch.ops import warp as warp_ops
 from voxelmorph_tpu_torch.ops.interp import ndgrid, resize
 from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bwd,
                                                    warp_bounded_bwd_plain, windowed_transform)
-from voxelmorph_tpu_torch.registration import build_register_fn
+from voxelmorph_tpu_torch.registration import (build_register_fn, enable_fast_warp,
+                                               resolve_registration_model)
 from voxelmorph_tpu_torch.training import LossTerm, Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -128,6 +143,22 @@ FLOW_STD = 0.05
 TRAIN_INIT_KERNEL_VS_GATHER_RTOL = 0.5
 TRAIN_KERNEL_VS_GATHER_RTOL = 1e-4
 TRAIN_GPU_VS_CPU_RTOL = 2e-3
+# one float32 train step (flow head redrawn), conv kernel mode against cuDNN
+# mode on the card, TF32 off: both convolve in full float32 and differ in the
+# order of sums and in the weight gradient (shifted matrix products against
+# cuDNN's)
+TRAIN_CONV_KERNEL_VS_CUDNN_RTOL = 1e-4
+
+# the least share of bf16 conv outputs the kernel and its plain version agree
+# on bit for bit in the same rounding order
+BF16_EQUAL_SHARE = 0.99
+
+# (D, H, W, ci, co) of the full-width U-Net's 11 conv blocks, in the order of
+# the forward; the first block's input (the image pair) needs no gradient
+UNET_CONVS = [(160, 192, 224, 2, 16), (80, 96, 112, 16, 32), (40, 48, 56, 32, 32),
+              (20, 24, 28, 32, 32), (10, 12, 14, 32, 32), (20, 24, 28, 64, 32),
+              (40, 48, 56, 64, 32), (80, 96, 112, 64, 32), (160, 192, 224, 48, 32),
+              (160, 192, 224, 32, 16), (160, 192, 224, 16, 16)]
 
 
 def log(*args):
@@ -143,6 +174,25 @@ def window_halo(value):
         yield
     finally:
         os.environ.pop("VXM_WINDOW_HALO")
+
+
+@contextlib.contextmanager
+def conv_kernel_mode(enabled):
+    """Run with the conv-kernel dispatch forced on or off."""
+    conv3.set_pallas_conv(enabled)
+    try:
+        yield
+    finally:
+        conv3.set_pallas_conv(None)
+
+
+def reset_launches():
+    warp_bounded.launches = warp_bounded_bwd.launches = conv3.conv3_same_cf.launches = 0
+
+
+def read_launches():
+    return {"fwd": warp_bounded.launches, "bwd": warp_bounded_bwd.launches,
+            "conv": conv3.conv3_same_cf.launches}
 
 
 def phase(name):
@@ -259,12 +309,12 @@ def register_full_width(moving, fixed):
         f"{sum(p.numel() for p in model.parameters())} params")
     register = build_register_fn(model)
 
-    warp_bounded.launches = warp_bounded_bwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     moved, warp = register(moving, fixed)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"fwd": warp_bounded.launches, "bwd": warp_bounded_bwd.launches}
+    launches = read_launches()
     log(f"first call {first_s:.3f} s; kernel launches {launches}")
     if launches["fwd"] == 0:
         raise AssertionError("the serving path launched no warp_bounded kernel")
@@ -335,6 +385,121 @@ def bf16_vs_f32(moved, warp, moved_f32, warp_f32):
         f"{image_err:.4e} (mean {image_mean:.4e}, tol {BF16_VS_F32_IMAGE_TOL})")
     if not (flow_err <= BF16_VS_F32_FLOW_TOL and image_err <= BF16_VS_F32_IMAGE_TOL):
         raise AssertionError("bfloat16 GPU run is too far from the float32 GPU run")
+
+
+def register_conv_kernel(moving, fixed):
+    """Phase 3b: the serving path with the conv kernel. Returns the launch
+    counts of one bfloat16 register call and its ms per pair."""
+    with conv_kernel_mode(True):
+        register = build_register_fn(load_model(str(CHECKPOINT), device="cuda"))
+        reset_launches()
+        moved, warp = register(moving, fixed)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"bfloat16 register call with the conv kernel: kernel launches {launches}")
+        if launches["conv"] != len(UNET_CONVS) or launches["fwd"] == 0:
+            raise AssertionError(f"expected {len(UNET_CONVS)} conv launches and warp launches, "
+                                 f"got {launches}")
+        if tuple(warp.shape) != (1, *INSHAPE, 3) or not (
+                torch.isfinite(moved).all() and torch.isfinite(warp).all()):
+            raise AssertionError("bad output of the conv-kernel register call")
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            register(moving, fixed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        log(f"bs1 bfloat16 with the conv kernel: {ms:.2f} ms per pair ({1e3 / ms:.4f} pairs/s)")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, f32_launches = {}, {}
+    for enabled in (True, False):
+        with conv_kernel_mode(enabled):
+            model = load_model(str(CHECKPOINT), device="cuda", dtype=torch.float32)
+            reset_launches()
+            f32[enabled] = build_register_fn(model)(moving, fixed)
+            torch.cuda.synchronize()
+            f32_launches[enabled] = read_launches()["conv"]
+    flow_err, _ = max_and_mean_abs(f32[True][1], f32[False][1])
+    image_err, _ = max_and_mean_abs(f32[True][0], f32[False][0])
+    log(f"float32, conv kernel ({f32_launches[True]} launches) vs cuDNN "
+        f"({f32_launches[False]}): pos_flow max abs err {flow_err:.3e} (tol {FLOW_TOL}), "
+        f"y_source max abs err {image_err:.3e} (tol {IMAGE_TOL})")
+    if f32_launches != {True: len(UNET_CONVS), False: 0}:
+        raise AssertionError(f"float32 conv launches {f32_launches}")
+    if not (flow_err <= FLOW_TOL and image_err <= IMAGE_TOL):
+        raise AssertionError("float32 conv-kernel run disagrees with the cuDNN run")
+    bf16_vs_f32(moved, warp, *f32[True])
+    return launches, ms
+
+
+def fast_warp_check(moving, fixed):
+    """Phase 3c: --fast-warp at full width (bfloat16), then float32 on the
+    card against the port's CPU run at 80x96x112. Returns the launch counts
+    of the full-width call and its ms per pair."""
+    def calls(model, mv, fx):
+        """Register with and without the phase warp; the launches of each."""
+        out = {}
+        for name, m in (("plain", model), ("fast", enable_fast_warp(model))):
+            reset_launches()
+            moved, warp = build_register_fn(m)(mv, fx)
+            if mv.is_cuda:
+                torch.cuda.synchronize()
+            out[name] = (moved, warp, read_launches())
+        return out
+
+    def phase_launches(out):
+        # the plain call's kernel launches: the squarings, and the final warp
+        # where max|warp| <= 1 (the halo-1 tier); the fast call's: the same
+        # squarings and 4 halo-2 phase warps
+        squarings = out["plain"][2]["fwd"] - int(out["plain"][1].abs().max().item() <= 1.0)
+        return out["fast"][2]["fwd"] - squarings
+
+    model = load_model(str(CHECKPOINT), device="cuda")
+    out = calls(model, moving, fixed)
+    launches = out["fast"][2]
+    n_phase = phase_launches(out)
+    flow_err, _ = max_and_mean_abs(out["fast"][1], out["plain"][1])
+    image_diff, image_mean = max_and_mean_abs(out["fast"][0], out["plain"][0])
+    log(f"fast warp, bfloat16, {INSHAPE}: kernel launches {launches} ({n_phase} phase warps); "
+        f"pos_flow vs the plain call {flow_err:.3e}; y_source vs the gather's {image_diff:.4e} "
+        f"(mean {image_mean:.4e})")
+    if n_phase != 4 or flow_err > FLOW_TOL:
+        raise AssertionError("the fast-warp call did not take four halo-2 phase warps")
+    ms = {}
+    for name, m in (("plain", model), ("fast", enable_fast_warp(model))):
+        register = build_register_fn(m)
+        register(moving, fixed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            register(moving, fixed)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"bs1 bfloat16: fast warp {ms['fast']:.2f} ms per pair, gather {ms['plain']:.2f} ms")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    half = tuple(s // 2 for s in INSHAPE)
+    mv_h, fx_h = smooth_pair(half, "cpu")
+    results = {}
+    for device in ("cuda", "cpu"):
+        m = resolve_registration_model(
+            load_model(str(CHECKPOINT), device=device, dtype=torch.float32), half)
+        t0 = time.perf_counter()
+        results[device] = calls(m, mv_h.to(device), fx_h.to(device))
+        log(f"fast warp, float32, {half} on {device}: {time.perf_counter() - t0:.2f} s, "
+            f"{phase_launches(results[device]) if device == 'cuda' else 0} phase warp launches")
+    if phase_launches(results["cuda"]) != 4:
+        raise AssertionError(f"the fast-warp call at {half} took no bounded phase warps")
+    flow_err, _ = max_and_mean_abs(results["cuda"]["fast"][1], results["cpu"]["fast"][1])
+    image_err, _ = max_and_mean_abs(results["cuda"]["fast"][0], results["cpu"]["fast"][0])
+    log(f"fast warp GPU vs CPU float32 at {half}: pos_flow max abs err {flow_err:.3e} (tol "
+        f"{FLOW_TOL}), y_source max abs err {image_err:.3e} (tol {IMAGE_TOL})")
+    if not (flow_err <= FLOW_TOL and image_err <= IMAGE_TOL):
+        raise AssertionError("the fast-warp GPU run disagrees with the CPU run")
+    return launches, ms["fast"]
 
 
 def profile_device(label, fn, rows):
@@ -473,11 +638,114 @@ def check_grads_gpu_vs_cpu(rng):
             raise AssertionError(f"{name}: GPU and CPU gradients differ")
 
 
-def default_recipe(inshape):
+def conv_bound(ci, co, vox, dtype):
+    """The least time of one conv on the card: its operations,
+    2 * 27 * ci * co per voxel, at the dense bf16 tensor-core rate or the
+    float32 rate, or its bytes, x read and y written once. Returns (ms,
+    bound_by, seconds of the bytes, seconds of the operations)."""
+    t_bytes = (ci + co) * vox * (2 if dtype == torch.bfloat16 else 4) / HBM_BYTES_PER_S
+    rate = BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops = 2 * 27 * ci * co * vox / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        t_bytes, t_ops
+
+
+def check_conv3(seed):
+    """The conv kernel against its plain version at the full-width U-Net's
+    conv shapes: the forward in both rounding orders and the input-gradient
+    orientation (taps flipped, ci and co swapped, no bias or activation),
+    within conv3.kernel_tolerance and bit-equal across two launches; times of
+    the rounding order the main path uses. Returns the rows and the totals by
+    (dtype, orientation) over the convs a register call (forward) and a train
+    step (input gradient: all but the first) run."""
+    rows, totals = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)  # data made on the card
+    for dtype in (torch.bfloat16, torch.float32):
+        elem = 2 if dtype == torch.bfloat16 else 4
+        for index, (D, H, W, ci, co) in enumerate(UNET_CONVS):
+            vox = D * H * W
+            x = torch.randn((1, ci, D, H, W), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((1, co, D, H, W), generator=gen, device="cuda").to(dtype)
+            kernel = torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda") * \
+                (2.0 / (27 * ci)) ** 0.5
+            bias = 0.1 * torch.randn(co, generator=gen, device="cuda")
+            flipped = kernel.flip(0, 1, 2).transpose(3, 4)
+            path_order = not conv3.jax_kernel_takes(ci, co, D, H, W, elem, elem)
+            cases = {
+                "fwd": (x, kernel, bias, 0.2, [path_order, not path_order], (ci, co)),
+                "dx": (g, flipped, torch.zeros(ci, device="cuda"), None, [False], (co, ci)),
+            }
+            for orientation, (inp, k, b, slope, orders, (c_in, c_out)) in cases.items():
+                err = ratio = 0.0
+                equal_share = 1.0
+                repeatable = True
+                for order in orders:
+                    y = conv3.conv3_same_cf(inp, k, b, act_slope=slope, round_conv_first=order)
+                    y2 = conv3.conv3_same_cf(inp, k, b, act_slope=slope, round_conv_first=order)
+                    plain = conv3.conv3_same_cf_plain(inp, k, b, slope, None, order)
+                    torch.cuda.synchronize()
+                    diff = (y.float() - plain.float()).abs()
+                    err = max(err, diff.max().item())
+                    ratio = max(ratio, (diff / conv3.kernel_tolerance(plain, b, order)).max().item())
+                    equal_share = min(equal_share, (y == plain).float().mean().item())
+                    repeatable = repeatable and torch.equal(y, y2)
+                    del y, y2, plain, diff
+                order = orders[0]
+                w_lib = k.permute(4, 3, 0, 1, 2).to(dtype).contiguous()
+                b_lib = b.to(dtype)
+                bound_ms, bound_by, t_bytes, t_ops = conv_bound(c_in, c_out, vox, dtype)
+                row = dict(
+                    conv=index, orientation=orientation, dtype=str(dtype).split(".")[1],
+                    shape=[1, c_in, D, H, W], co=c_out, round_conv_first=order,
+                    max_abs_err=err, max_err_over_tol=ratio, equal_share=equal_share,
+                    repeatable=repeatable,
+                    ms=time_cuda_ms(lambda: conv3.conv3_same_cf(
+                        inp, k, b, act_slope=slope, round_conv_first=order)),
+                    plain_ms=time_cuda_ms(lambda: conv3.conv3_same_cf_plain(
+                        inp, k, b, slope, None, order), reps=3, warmup=1),
+                    library_ms=time_cuda_ms(lambda: F.conv3d(inp, w_lib, b_lib, padding=1)),
+                    bound_ms=bound_ms, bound_by=bound_by)
+                log(json.dumps(row))
+                if not ratio <= 1.0:
+                    raise AssertionError(f"conv3 kernel differs from its plain version by "
+                                         f"{ratio:.3f} of its tolerance at {row}")
+                if not repeatable:
+                    raise AssertionError(f"two launches of the conv3 kernel differ at {row}")
+                # in bfloat16 the sums' order rarely flips a rounding (the
+                # other rounding order differs in about a third of outputs)
+                if dtype == torch.bfloat16 and not equal_share >= BF16_EQUAL_SHARE:
+                    raise AssertionError(f"conv3 kernel equals its plain version on only "
+                                         f"{equal_share:.4f} of the outputs at {row}")
+                rows.append(row)
+                if orientation == "fwd" or index > 0:
+                    t = totals.setdefault((row["dtype"], orientation), dict(
+                        convs=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        t_bytes=0.0, t_ops=0.0))
+                    t["convs"] += 1
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                        t[key] += row[key]
+                    t["t_bytes"] += t_bytes
+                    t["t_ops"] += t_ops
+            del x, g, kernel, flipped
+    for (dtype, orientation), t in totals.items():
+        t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+        log(f"conv3 {dtype} {orientation}, {t['convs']} convs: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, cuDNN "
+            f"{t['library_ms']:.4f} ms")
+    return rows, totals
+
+
+def default_recipe(inshape, flow_std=None):
     """scripts/train.py's default: MSE + Grad('l2', loss_mult=2), weight 0.01,
-    on a float32 VxmDense with default features, initialised from seed 0."""
+    on a float32 VxmDense with default features, initialised from seed 0.
+    ``flow_std`` redraws the flow head's kernel as N(0, flow_std) (seed 1),
+    for flows of about a voxel instead of the init's ~1e-5."""
     model = VxmDense(inshape, int_steps=7, int_resolution=2,
                      generator=torch.Generator().manual_seed(SEED))
+    if flow_std is not None:
+        with torch.no_grad():
+            model.flow.weight.normal_(0.0, flow_std,
+                                      generator=torch.Generator().manual_seed(SEED + 1))
     terms = [LossTerm("y_source", losses.MSE(1.0).loss, weight=1.0, target_index=0),
              LossTerm("reg", losses.Grad("l2", loss_mult=2).loss, weight=0.01,
                       target_index=1, name="grad")]
@@ -486,24 +754,19 @@ def default_recipe(inshape):
 
 def one_step_grads(inshape, device, moving, fixed, flow_std=None):
     """Loss and parameter gradients of one train step of the default recipe
-    (no update), with the kernel launch counts of the step. ``flow_std``
-    redraws the flow head's kernel as N(0, flow_std) (seed 1), for flows of
-    about a voxel instead of the init's ~1e-5."""
-    model, terms = default_recipe(inshape)
-    if flow_std is not None:
-        with torch.no_grad():
-            model.flow.weight.normal_(0.0, flow_std,
-                                      generator=torch.Generator().manual_seed(SEED + 1))
+    (no update, ``flow_std`` as in ``default_recipe``), with the kernel
+    launch counts of the step."""
+    model, terms = default_recipe(inshape, flow_std)
     trainer = Trainer(model, terms, device=device)
     trainer.model.train()
     zero = torch.zeros((1, *inshape, 3), device=device)
-    warp_bounded.launches = warp_bounded_bwd.launches = 0
+    reset_launches()
     loss, _ = trainer.loss_fn((moving.to(device), fixed.to(device)), (fixed.to(device), zero))
     loss.backward()
     if device == "cuda":
         torch.cuda.synchronize()
     grads = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}
-    return loss.item(), grads, {"fwd": warp_bounded.launches, "bwd": warp_bounded_bwd.launches}
+    return loss.item(), grads, read_launches()
 
 
 def compare_grads(label, loss_a, grads_a, loss_b, grads_b, rtol):
@@ -617,6 +880,53 @@ def train_checkpoint_recipe():
             raise AssertionError("the checkpoint recipe launched no warp_bounded_bwd kernel")
 
 
+def train_conv_kernel(moving, fixed, profile):
+    """Phase 4b: the default recipe (float32, TF32 off, flow head redrawn
+    N(0, FLOW_STD)) with the conv kernel: one step against cuDNN mode, then
+    three steps. Returns the launch counts of a step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for enabled in (True, False):
+        with conv_kernel_mode(enabled):
+            runs[enabled] = one_step_grads(INSHAPE, "cuda", moving, fixed, FLOW_STD)
+    log(f"one step, conv kernel launches {runs[True][2]}, cuDNN mode {runs[False][2]}")
+    expected = 2 * len(UNET_CONVS) - 1
+    if runs[True][2]["conv"] != expected or runs[False][2]["conv"] != 0 or \
+            runs[True][2]["bwd"] == 0:
+        raise AssertionError(f"expected {expected} conv launches and warp launches per step")
+    compare_grads(f"conv kernel vs cuDNN, flow head N(0, {FLOW_STD}), {INSHAPE}",
+                  runs[True][0], runs[True][1], runs[False][0], runs[False][1],
+                  TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
+    del runs
+
+    with conv_kernel_mode(True):
+        model, terms = default_recipe(INSHAPE, FLOW_STD)
+        trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+        zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        step_losses, step_s, per_step = [], [], []
+        for _ in range(3):
+            reset_launches()
+            t0 = time.perf_counter()
+            step_losses.append(trainer.train_step((moving, fixed), (fixed, zero))["loss"].item())
+            step_s.append(time.perf_counter() - t0)
+            per_step.append(read_launches())
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("conv kernel step losses: " + ", ".join(f"{x:.8f}" for x in step_losses))
+        log(f"conv kernel launches per step: {per_step}")
+        log(f"float32 train step with the conv kernel, bs1, {INSHAPE}: " + ", ".join(
+            f"{x:.4f}" for x in step_s) + f" s/step; peak memory allocated {peak_gb:.3f} GiB")
+        if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
+            raise AssertionError(f"three steps did not lower the loss: {step_losses}")
+        if any(p["conv"] != expected or p["fwd"] == 0 or p["bwd"] == 0 for p in per_step):
+            raise AssertionError(f"a step missed a kernel: {per_step}")
+        if profile:
+            profile_device("train step, conv kernel", lambda: trainer.train_step(
+                (moving, fixed), (fixed, zero))["loss"].item(), rows=30)
+    return per_step[-1]
+
+
 def conv_library_times(model):
     """cuDNN's time for each 3x3x3 conv of the U-Net (the convs the Pallas
     conv kernel computes) at full width in bfloat16, forward and backward,
@@ -656,13 +966,16 @@ def conv_library_times(model):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="print a profiler breakdown of one bfloat16 register call")
+                        help="print profiler breakdowns of a register call and a train "
+                             "step, with and without the conv kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
-    # the serving path's own halo rule, whatever the environment says
-    os.environ.pop("VXM_WINDOW_HALO", None)
+    # the serving path's own halo rule and conv dispatch, whatever the
+    # environment says
+    for name in ("VXM_WINDOW_HALO", "VXM_PALLAS_CONV", "VXM_XLA_DW_EINSUM"):
+        os.environ.pop(name, None)
     torch.manual_seed(SEED)
     t_all = time.perf_counter()
 
@@ -694,6 +1007,10 @@ def main(argv=None) -> int:
     check_grads_gpu_vs_cpu(np.random.default_rng(SEED + 2))
     log(f"phase 2c: {time.perf_counter() - t:.2f} s")
 
+    t = phase("2d. conv3 kernel vs plain version")
+    conv_rows, conv_totals = check_conv3(SEED + 3)
+    log(f"phase 2d: {time.perf_counter() - t:.2f} s")
+
     t = phase("3. VxmDense registration at full width")
     moving, fixed = smooth_pair(INSHAPE, "cuda")
     model, launches, moved, warp = register_full_width(moving, fixed)
@@ -704,18 +1021,39 @@ def main(argv=None) -> int:
     bf16_vs_f32(moved, warp, *register_f32_vs_cpu(moving, fixed))
     log(f"phase 3: {time.perf_counter() - t:.2f} s")
 
+    t = phase("3b. VxmDense registration with the conv kernel")
+    conv_launches, conv_ms = register_conv_kernel(moving, fixed)
+    if args.profile:
+        with conv_kernel_mode(True):
+            profile_call(load_model(str(CHECKPOINT), device="cuda"), moving, fixed)
+    log(f"phase 3b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("3c. --fast-warp at full width")
+    fast_launches, _ = fast_warp_check(moving, fixed)
+    log(f"phase 3c: {time.perf_counter() - t:.2f} s")
+
     t = phase("4. VxmDense training at full width")
     train_launches = train_full_width(args.profile)
     train_checkpoint_recipe()
     log(f"phase 4: {time.perf_counter() - t:.2f} s")
 
+    t = phase("4b. VxmDense training with the conv kernel")
+    conv_train_launches = train_conv_kernel(moving, fixed, args.profile)
+    log(f"phase 4b: {time.perf_counter() - t:.2f} s")
+
+    paths = {"register": launches, "train_step": train_launches,
+             "register_conv": conv_launches, "register_fast_warp": fast_launches,
+             "train_step_conv": conv_train_launches}
     serving, serving_bwd = rows[0], bwd_rows[0]
+    conv_serving = conv_totals[("bfloat16", "fwd")]
+    conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     kernels = [dict(
         name="warp_bounded_fwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:269",
         launches=train_launches["fwd"],
-        launches_by_path={"register": launches["fwd"], "train_step": train_launches["fwd"]},
+        launches_by_path={path: n["fwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=serving["ms"], plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
         bound_by=serving["bound_by"], library_ms=serving["library_ms"]), dict(
@@ -723,11 +1061,24 @@ def main(argv=None) -> int:
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:952",
         launches=train_launches["bwd"],
-        launches_by_path={"register": launches["bwd"], "train_step": train_launches["bwd"]},
+        launches_by_path={path: n["bwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=serving_bwd["ms"], plain_ms=serving_bwd["plain_ms"],
         bound_ms=serving_bwd["bound_ms"], bound_by=serving_bwd["bound_by"],
-        library_ms=serving_bwd["library_ms"])]
+        library_ms=serving_bwd["library_ms"]), dict(
+        # times: the 11 forward convs of a bfloat16 register call, summed;
+        # train_step_conv: the 11 forward and 10 input-gradient convs of a
+        # float32 train step
+        name="conv3_fwd", route="cuda", source="voxelmorph_tpu_torch/csrc/conv3.cu",
+        replaces="voxelmorph_tpu/ops/pallas_conv.py:124",
+        launches=conv_train_launches["conv"],
+        launches_by_path={path: n["conv"] for path, n in paths.items()},
+        max_abs_err=max(r["max_abs_err"] for r in conv_rows),
+        max_err_over_tol=max(r["max_err_over_tol"] for r in conv_rows),
+        ms=conv_serving["ms"], plain_ms=conv_serving["plain_ms"],
+        bound_ms=conv_serving["bound_ms"], bound_by=conv_serving["bound_by"],
+        library_ms=conv_serving["library_ms"], register_conv_ms_per_pair=conv_ms,
+        train_step_conv=conv_train)]
     log(f"\ntotal {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

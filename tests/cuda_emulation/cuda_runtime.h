@@ -10,6 +10,9 @@
 #include <thread>
 #include <vector>
 
+struct float4 {
+  float x, y, z, w;
+};
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -28,7 +31,7 @@ static cudaError_t cudaGetLastError() { return cudaSuccess; }
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __syncthreads() emu_barrier->arrive_and_wait()
 // rounded apart: no fused multiply-add, as the intrinsics promise
 static float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }

@@ -1,0 +1,134 @@
+"""The port's 3x3x3 conv (``ops/conv3.py``) against the JAX package's Pallas
+conv on the CPU.
+
+The JAX side runs ``pallas_conv`` through the Pallas interpreter, the port
+its plain version (what a CPU tensor runs; the CUDA kernel is held to it on
+the card by ``chip_smoke.py`` and on the CPU by
+``test_torch_kernel_emulation.py``). Inputs come from numpy seeds.
+Tolerances, float32: 2e-5 on the forward and 3e-4 on the gradients, the JAX
+package's own for its kernel against XLA (``tests/test_pallas.py``; the two
+sides sum in other orders); bfloat16: one bf16 step, 2^-7 of |y|,
+elementwise. The model-level checks are in ``test_torch_conv3_model.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import assert_close
+from voxelmorph_tpu.ops import pallas_conv
+from voxelmorph_tpu_torch.ops import conv3
+
+FWD_ATOL = 2e-5
+GRAD_ATOL = 3e-4
+BF16_STEP = 2.0 ** -7
+
+# (D, H, W, ci, co) of the full-width U-Net's 11 convs, 160x192x224
+FULL_WIDTH = [(160, 192, 224, 2, 16), (80, 96, 112, 16, 32), (40, 48, 56, 32, 32),
+              (20, 24, 28, 32, 32), (10, 12, 14, 32, 32), (20, 24, 28, 64, 32),
+              (40, 48, 56, 64, 32), (80, 96, 112, 64, 32), (160, 192, 224, 48, 32),
+              (160, 192, 224, 32, 16), (160, 192, 224, 16, 16)]
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(pallas_conv, "_INTERPRET", True)
+
+
+def _assert_allclose(actual, expected, tol, name):
+    """Within ``tol`` absolute plus ``tol`` relative, as tests/test_pallas.py
+    holds the Pallas conv to XLA; what is compared is at least 10 x tol."""
+    expected = np.asarray(expected)
+    assert np.abs(expected).max() >= 10 * tol, name
+    np.testing.assert_allclose(actual, expected, rtol=tol, atol=tol, err_msg=name)
+
+
+def _conv_case(batch, ci=2, co=4, shape=(8, 8, 32), seed=5):
+    """tests/test_pallas.py's case: x channels-last, kernel, bias, cotangent."""
+    rng = np.random.default_rng(seed + batch)
+    x = rng.normal(size=(batch, *shape, ci)).astype(np.float32)
+    k = (rng.normal(size=(3, 3, 3, ci, co)) * 0.2).astype(np.float32)
+    b = rng.normal(size=(co,)).astype(np.float32)
+    g = rng.normal(size=(batch, *shape, co)).astype(np.float32)
+    return x, k, b, g
+
+
+@pytest.mark.parametrize("slope", [None, 0.2])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_conv3_same_matches_pallas_kernel(interpret, batch, slope):
+    x, k, b, g = _conv_case(batch)
+    ref = pallas_conv.conv3_same(*map(jnp.asarray, (x, k, b)), act_slope=slope)
+    ref_grads = jax.grad(lambda *a: jnp.sum(pallas_conv.conv3_same(*a, act_slope=slope) * g),
+                         argnums=(0, 1, 2))(*map(jnp.asarray, (x, k, b)))
+    xt, kt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, k, b))
+    out = conv3.conv3_same(xt, kt, bt, act_slope=slope)
+    _assert_allclose(out.detach().numpy(), ref, FWD_ATOL, "forward")
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (xt, kt, bt))
+    for name, ours, theirs in zip(("dx", "dkernel", "dbias"), grads, ref_grads):
+        _assert_allclose(ours.numpy(), theirs, GRAD_ATOL, name)
+    # the channels-first entry point is the same function
+    out_cf = conv3.conv3_same_cf(xt.detach().movedim(-1, 1).contiguous(), kt.detach(),
+                                 bt.detach(), act_slope=slope)
+    _assert_allclose(out_cf.movedim(1, -1).numpy(), ref, FWD_ATOL, "channels-first")
+    assert conv3.conv3_same_cf.launches == 0
+
+
+@pytest.mark.parametrize("slope", [None, 0.2])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_conv3_same_bfloat16_within_one_step(interpret, batch, slope):
+    x, k, b, _ = _conv_case(batch)
+    ref = np.asarray(pallas_conv.conv3_same(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (x, k, b)), act_slope=slope), np.float32)
+    out = conv3.conv3_same(torch.from_numpy(x).bfloat16(), torch.from_numpy(k),
+                           torch.from_numpy(b), act_slope=slope)
+    assert out.dtype == torch.bfloat16
+    err = np.abs(out.float().numpy() - ref)
+    assert np.abs(ref).max() > 1.0
+    assert (err <= BF16_STEP * np.abs(ref)).all(), err.max()
+
+
+def _jax_takes(ci, co, D, H, W, dtype):
+    """Whether JAX's conv3_same takes the shape (it returns None where it
+    declines), traced without running."""
+    out = jax.eval_shape(lambda x, k, b: pallas_conv.conv3_same(x, k, b),
+                         jax.ShapeDtypeStruct((1, D, H, W, ci), dtype),
+                         jax.ShapeDtypeStruct((3, 3, 3, ci, co), dtype),
+                         jax.ShapeDtypeStruct((co,), dtype))
+    return out is not None
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_jax_kernel_takes_matches_jax(dtype):
+    small = [(8, 8, 32, 2, 4), (8, 8, 28, 2, 4), (8, 8, 32, 3, 4), (32, 32, 32, 48, 32),
+             (16, 16, 16, 64, 32), (8, 8, 8, 32, 32), (4, 4, 4, 32, 32), (2, 2, 2, 32, 32),
+             (16, 16, 16, 2, 16), (12, 8, 16, 8, 8)]
+    nbytes = jnp.dtype(dtype).itemsize
+    answers = []
+    for D, H, W, ci, co in FULL_WIDTH + small:
+        ours = conv3.jax_kernel_takes(ci, co, D, H, W, nbytes, nbytes)
+        assert ours == _jax_takes(ci, co, D, H, W, dtype), (D, H, W, ci, co)
+        answers.append(ours)
+    # the full-width U-Net: 8 of 11 convs taken, and both answers occur
+    assert sum(answers[:len(FULL_WIDTH)]) == 8 and not all(answers[len(FULL_WIDTH):])
+
+
+@pytest.mark.parametrize("shape,nd", [((2, 7, 9, 11, 3), 3), ((2, 9, 11, 3), 2)],
+                         ids=["3d", "2d"])
+def test_lean_dw_matches_jax(shape, nd):
+    """tests/test_pallas.py's test_lean_dw_conv_matches_autodiff cases."""
+    rng = np.random.default_rng(17 + nd)
+    x = rng.normal(size=shape).astype(np.float32)
+    k = (rng.normal(size=(*((3,) * nd), 3, 5)) * 0.2).astype(np.float32)
+    b = rng.normal(size=(5,)).astype(np.float32)
+    g = rng.normal(size=(*shape[:-1], 5)).astype(np.float32)
+    ref = pallas_conv.conv3_same_lean_dw(*map(jnp.asarray, (x, k, b)), 0.2)
+    ref_grads = jax.grad(lambda *a: jnp.sum(pallas_conv.conv3_same_lean_dw(*a, 0.2) * g),
+                         argnums=(0, 1, 2))(*map(jnp.asarray, (x, k, b)))
+    xt, kt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, k, b))
+    out = conv3.conv3_same_lean_dw(xt, kt, bt, 0.2)
+    assert_close(out.detach().numpy(), np.asarray(ref), 1e-5, "forward")
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (xt, kt, bt))
+    for name, ours, theirs in zip(("dx", "dkernel", "dbias"), grads, ref_grads):
+        assert_close(ours.numpy(), np.asarray(theirs), 2e-4, name)

@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel sources of the package, by library name.
-SOURCES = {"warp_bounded": _SRC / "warp_bounded.cu"}
+SOURCES = {"warp_bounded": _SRC / "warp_bounded.cu", "conv3": _SRC / "conv3.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -61,7 +61,8 @@ def _stale(name: str) -> bool:
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, str]:
-    """Compile the named kernels (all by default) that are out of date.
+    """Compile the named kernels (all by default) that are out of date, one
+    nvcc process for each source, all started together.
 
     Returns the compiler's output (``-Xptxas -v`` register and shared-memory
     report) by library name for each library it built. Raises RuntimeError
@@ -73,19 +74,23 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
         return {}
     nvcc = nvcc_path()
     _OUT.mkdir(exist_ok=True)
-    logs = {}
-    for name in todo:
-        # compile to a private name and rename, so that concurrent builds
-        # never load a half-written library
-        tmp = _OUT / f".lib{name}.{os.getpid()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # compile to private names and rename, so that concurrent builds never
+    # load a half-written library
+    tmps = {name: _OUT / f".lib{name}.{os.getpid()}.so" for name in todo}
+    procs = {name: subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmps[name]), str(SOURCES[name])],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name in todo}
+    logs, failed = {}, []
+    for name, proc in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {SOURCES[name].name} "
-                               f"(exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, _library(name))
-        logs[name] = proc.stdout
+            tmps[name].unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {SOURCES[name].name} "
+                          f"(exit {proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmps[name], _library(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

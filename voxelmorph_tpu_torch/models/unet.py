@@ -10,7 +10,11 @@ reduced resolution. Module names follow the JAX package's parameter paths
 Inside the network tensors are channels-first ``(B, C, *S)``, the layout of
 ``torch.nn.functional.conv3d``. Parameters are float32; ``dtype`` is the
 compute type (bfloat16 for the committed full-width checkpoint). The convs
-run on cuDNN, as the JAX package runs them on XLA's ``nn.Conv`` by default.
+run on cuDNN, as the JAX package runs them on XLA's ``nn.Conv`` by default;
+the JAX package's two switches choose otherwise, as there: with
+``VXM_PALLAS_CONV=1`` (``ops.conv3.set_pallas_conv``) every 3-D conv block
+runs the port's conv kernel (``ops.conv3``), and with ``VXM_XLA_DW_EINSUM=1``
+the lean-dw convolution.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv3
 from ..py.utils import default_unet_features
 
 __all__ = ["Unet", "ConvBlock", "build_feature_lists", "he_normal_", "max_pool"]
@@ -60,9 +65,15 @@ def he_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None
 class ConvBlock(nn.Module):
     """conv(k3, SAME) + LeakyReLU(0.2), computed in ``dtype``.
 
-    The bias is added after the convolution's output is rounded to ``dtype``,
-    as flax's Conv does, so that a bfloat16 model rounds where the JAX
-    package's does.
+    The dispatch of the JAX package's ``ConvBlock``: with
+    ``conv3.pallas_conv_enabled()`` a 3-D block is ``conv3.conv3_same_cf``
+    with the activation fused (``PallasConv3``), rounded in the order the JAX
+    package gives that shape (``conv3.jax_kernel_takes``); else with
+    ``conv3.xla_dw_einsum_enabled()`` it is ``conv3.conv3_same_lean_dw``
+    (``LeanDwConv``); else cuDNN, where the bias is added after the
+    convolution's output is rounded to ``dtype``, as flax's Conv does, so that
+    a bfloat16 model rounds where the JAX package's does. The parameters are
+    the same in every case.
     """
 
     def __init__(self, in_features: int, features: int, ndims: int = 3,
@@ -75,11 +86,25 @@ class ConvBlock(nn.Module):
         he_normal_(self.conv.weight, generator)
         nn.init.zeros_(self.conv.bias)
 
+    def _jax_kernel(self) -> torch.Tensor:
+        """The weight in the JAX layout ``(*k, ci, co)``, in ``dtype``."""
+        return self.conv.weight.permute(*range(2, self.ndims + 2), 1, 0).to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        bias = self.conv.bias.to(self.dtype)
+        if conv3.pallas_conv_enabled() and self.ndims == 3 and x.dim() == 5:
+            nbytes = x.element_size()
+            takes = conv3.jax_kernel_takes(x.shape[1], self.conv.out_channels, *x.shape[2:],
+                                           nbytes, nbytes)
+            return conv3.conv3_same_cf(x, self._jax_kernel(), bias, act_slope=0.2,
+                                       round_conv_first=not takes)
+        if conv3.xla_dw_einsum_enabled():
+            return conv3.conv3_same_lean_dw(x.movedim(1, -1), self._jax_kernel(), bias,
+                                            0.2).movedim(-1, 1)
         conv = getattr(F, f"conv{self.ndims}d")
-        out = conv(x.to(self.dtype), self.conv.weight.to(self.dtype), padding=1)
-        bias = self.conv.bias.to(self.dtype).view(-1, *([1] * self.ndims))
-        return F.leaky_relu(out + bias, 0.2)
+        out = conv(x, self.conv.weight.to(self.dtype), padding=1)
+        return F.leaky_relu(out + bias.view(-1, *([1] * self.ndims)), 0.2)
 
 
 def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int) -> torch.Tensor:

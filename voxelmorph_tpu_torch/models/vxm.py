@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import warp as warp_ops
+from ..ops.warp_bounded import MAX_CHANNELS as _MAX_WARP_CHANNELS
 from .unet import Unet
 
 __all__ = ["VxmDense", "rescale_flow", "sample_normal"]
@@ -50,7 +51,11 @@ class VxmDense(nn.Module):
     y_source, (y_target,) svf, preint_flow, postint_flow, pos_flow,
     (neg_flow,) (flow_params,) unet_out and reg. With ``use_probs`` the flow
     is, in training mode, a sample of the predicted distribution with noise
-    drawn from ``generator``, and in eval mode its mean.
+    drawn from ``generator``, and in eval mode its mean. With
+    ``fast_warp_phases`` s > 0 (``registration.enable_fast_warp``) the eval
+    forward warps the images as 2^s bounded warps at ``fast_warp_halo`` by the
+    2^s-th root of pos_flow (``ops.warp.phase_warp_batched``), on either
+    device; every field output is unchanged.
     """
 
     def __init__(self, inshape: Sequence[int], nb_unet_features=None,
@@ -67,9 +72,6 @@ class VxmDense(nn.Module):
             raise NotImplementedError(f"the PyTorch VxmDense is 3-D, got inshape {inshape}")
         if hyper:
             raise NotImplementedError("HyperMorph (hyper=True) is not ported yet")
-        if fast_warp_phases > 0 or fast_warp_halo != 2:
-            raise NotImplementedError("fast_warp_phases > 0 and fast_warp_halo (the phase "
-                                      "warp) are not ported yet")
         if reg_field.lower() not in ("svf", "preintegrated", "postintegrated", "warp"):
             raise ValueError(f'Unknown option "{reg_field}" for reg_field.')
         dtype = _DTYPES.get(dtype, dtype)
@@ -90,6 +92,8 @@ class VxmDense(nn.Module):
         self.fill_value = fill_value
         self.reg_field = reg_field
         self.dtype = dtype
+        self.fast_warp_phases = fast_warp_phases
+        self.fast_warp_halo = fast_warp_halo
 
         # decoder upsamplings to skip so the unet emits at svf resolution
         nb_upsample_skips = int(np.floor(np.log(svf_resolution) / np.log(2)))
@@ -139,31 +143,56 @@ class VxmDense(nn.Module):
 
         pos_flow = flow
         neg_flow = -flow if self.bidir else None
+
+        # the phase warp (fast_warp_phases, eval mode only): the last s
+        # squarings move from the field to the image, 2^s bounded warps of
+        # the image by the s-th intermediate field, the 2^s-th root of
+        # pos_flow; pos_flow and every field output are unchanged
+        fast_s = 0
+        if (not self.training and self.fast_warp_phases > 0 and self.int_steps > 0
+                and self.fill_value is None and source.shape[-1] <= _MAX_WARP_CHANNELS):
+            fast_s = min(int(self.fast_warp_phases), self.int_steps)
+
+        def integrate(v):
+            """(the integrated field, its 2^fast_s-th root or None)"""
+            if fast_s:
+                return warp_ops.integrate_vec_batched(v, nb_steps=self.int_steps,
+                                                      return_root_steps=fast_s)
+            return warp_ops.integrate_vec_batched(v, nb_steps=self.int_steps), None
+
+        pos_root = neg_root = None
         if self.int_steps > 0:
-            pos_flow = warp_ops.integrate_vec_batched(pos_flow, nb_steps=self.int_steps)
+            pos_flow, pos_root = integrate(pos_flow)
             if self.bidir:
-                neg_flow = warp_ops.integrate_vec_batched(neg_flow, nb_steps=self.int_steps)
+                neg_flow, neg_root = integrate(neg_flow)
         outputs["postint_flow"] = pos_flow
 
         # back to full resolution
         if self.int_steps > 0 and self.int_resolution > 1:
             factor = self.inshape[0] / int_size[0]
             pos_flow = rescale_flow(pos_flow, factor)
+            if pos_root is not None:
+                pos_root = rescale_flow(pos_root, factor)
             if self.bidir:
                 neg_flow = rescale_flow(neg_flow, factor)
+                if neg_root is not None:
+                    neg_root = rescale_flow(neg_root, factor)
 
         # training warps the image in float32, serving in the model's compute
         # dtype, as JAX does
         img_dtype = torch.float32 if self.training else self.dtype
 
-        def warp(img, w):
-            return warp_ops.transform_batched(
-                img.to(img_dtype), w, fill_value=self.fill_value).float()
+        def warp(img, w, root):
+            img = img.to(img_dtype)
+            if fast_s:
+                return warp_ops.phase_warp_batched(img, root, w, 2 ** fast_s,
+                                                   self.fast_warp_halo)
+            return warp_ops.transform_batched(img, w, fill_value=self.fill_value).float()
 
-        outputs["y_source"] = warp(source, pos_flow)
+        outputs["y_source"] = warp(source, pos_flow, pos_root)
         outputs["pos_flow"] = pos_flow
         if self.bidir:
-            outputs["y_target"] = warp(target, neg_flow)
+            outputs["y_target"] = warp(target, neg_flow, neg_root)
             outputs["neg_flow"] = neg_flow
 
         if self.use_probs:

@@ -21,7 +21,7 @@ from .interp import interpn, ndgrid, resize
 from .warp_bounded import warp_bounded
 
 __all__ = ["transform", "transform_batched", "integrate_vec_batched",
-           "rescale_dense_transform"]
+           "phase_warp_batched", "rescale_dense_transform"]
 
 DEFAULT_WINDOW_HALO = "auto"
 
@@ -124,16 +124,51 @@ def transform_batched(vols: torch.Tensor, shifts: torch.Tensor, interp_method: s
 
 
 def integrate_vec_batched(vec: torch.Tensor, nb_steps: int = 7,
-                          window_halo=DEFAULT_WINDOW_HALO) -> torch.Tensor:
+                          window_halo=DEFAULT_WINDOW_HALO, return_root_steps: int = 0):
     """Scaling and squaring of a batch of stationary velocity fields
     ``(B, *S, N)``: ``v /= 2**nb_steps``, then ``nb_steps`` times
-    ``v <- v + v o (id + v)``."""
+    ``v <- v + v o (id + v)``.
+
+    With ``return_root_steps = s > 0`` it also returns ``root``, the field
+    after ``nb_steps - s`` squarings: the 2^s-th root of the result (composed
+    with itself 2^s times it gives the result, up to interpolation error),
+    as ``(final, root)``; see ``phase_warp_batched``.
+    """
     if nb_steps < 0:
         raise ValueError(f"nb_steps must be >= 0, got {nb_steps}")
+    if not 0 <= return_root_steps <= nb_steps:
+        raise ValueError(f"return_root_steps must be in [0, {nb_steps}], got {return_root_steps}")
     vec = vec / (2.0 ** nb_steps)
-    for _ in range(nb_steps):
+    root = vec
+    for i in range(nb_steps):
+        if i == nb_steps - return_root_steps:
+            root = vec
         vec = vec + transform_batched(vec, vec, window_halo=window_halo)
+    if return_root_steps:
+        return vec, root
     return vec
+
+
+def phase_warp_batched(vols: torch.Tensor, root: torch.Tensor, full_flow: torch.Tensor,
+                       n_apps: int, halo: int) -> torch.Tensor:
+    """Warp ``vols`` ``(B, *S, C)`` by ``full_flow`` as ``n_apps`` successive
+    bounded warps by ``root``, its ``n_apps``-th root from
+    ``integrate_vec_batched(..., return_root_steps=s)`` with ``n_apps = 2**s``:
+
+        vols o full_flow  ==  ((vols o root) o root) ... (n_apps times)
+
+    up to interpolation error (each application resamples the image). Each
+    application is ``warp_bounded`` at ``halo`` (the CUDA kernel on CUDA
+    tensors). When max|root| exceeds ``halo`` it warps once by ``full_flow``
+    through the gather instead, the exact result. Returns float32.
+    """
+    if root.abs().max().item() <= float(halo):
+        out = vols
+        for _ in range(n_apps):
+            out = warp_bounded(out, root, halo)
+        return out.to(torch.float32)
+    return torch.stack([transform(v, f, window_halo=None)
+                        for v, f in zip(vols, full_flow)]).to(torch.float32)
 
 
 def rescale_dense_transform(trf: torch.Tensor, factor, interp_method: str = "linear") -> torch.Tensor:

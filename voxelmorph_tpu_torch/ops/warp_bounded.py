@@ -27,7 +27,8 @@ from .interp import ndgrid
 __all__ = ["windowed_transform", "warp_bounded_bwd_plain", "warp_bounded",
            "warp_bounded_bwd"]
 
-_MAX_CHANNELS = 4
+# the most channels the kernels take
+MAX_CHANNELS = 4
 
 
 def windowed_transform(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> torch.Tensor:
@@ -84,8 +85,8 @@ def _check(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> None:
     if vol.shape[:-1] != loc_shift.shape[:-1]:
         raise ValueError(f"vol {tuple(vol.shape)} and shift "
                          f"{tuple(loc_shift.shape)} differ in batch or space")
-    if not 1 <= vol.shape[-1] <= _MAX_CHANNELS:
-        raise ValueError(f"warp_bounded takes 1 to {_MAX_CHANNELS} channels, "
+    if not 1 <= vol.shape[-1] <= MAX_CHANNELS:
+        raise ValueError(f"warp_bounded takes 1 to {MAX_CHANNELS} channels, "
                          f"got {vol.shape[-1]}")
     if not (vol.is_floating_point() and loc_shift.is_floating_point()):
         raise TypeError("warp_bounded takes floating-point vol and shift")

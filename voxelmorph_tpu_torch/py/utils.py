@@ -1,8 +1,8 @@
 """Host-side numpy utilities that registration needs.
 
 The port's own copies of ``voxelmorph_tpu.py.utils.default_unet_features``,
-``read_file_list``, ``load_volfile`` and ``save_volfile``, for NIfTI
-(.nii/.nii.gz), .npy and .npz volumes.
+``read_file_list``, ``read_pair_list``, ``load_volfile``, ``save_volfile``
+(for NIfTI (.nii/.nii.gz), .npy and .npz volumes) and ``dice``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import numpy as np
 
 from . import io as _io
 
-__all__ = ["default_unet_features", "read_file_list", "load_volfile", "save_volfile"]
+__all__ = ["default_unet_features", "read_file_list", "read_pair_list", "load_volfile",
+           "save_volfile", "dice"]
 
 
 def default_unet_features():
@@ -28,6 +29,12 @@ def read_file_list(filename, prefix=None, suffix=None):
     """Read a newline-separated list of files, with optional prefix/suffix."""
     with open(filename) as f:
         return [(prefix or "") + e + (suffix or "") for e in (line.strip() for line in f) if e]
+
+
+def read_pair_list(filename, delim=None, prefix=None, suffix=None):
+    """Read a list of registration file pairs (one delimited pair per line)."""
+    return [[(prefix or "") + name + (suffix or "") for name in line.split(delim)]
+            for line in read_file_list(filename)]
 
 
 def load_volfile(filename, np_var="vol", add_batch_axis=False,
@@ -78,3 +85,20 @@ def save_volfile(array, filename, affine=None):
         np.savez_compressed(filename, vol=array)
     else:
         raise ValueError(f"unknown filetype for {filename}")
+
+
+def dice(array1, array2, labels=None, include_zero=False):
+    """Hard-label Dice overlap per label, 2 |A & B| / (|A| + |B|), zero-safe;
+    by default over the labels of either array but 0."""
+    if labels is None:
+        labels = np.union1d(np.unique(array1), np.unique(array2))
+    labels = np.asarray(labels)
+    if not include_zero:
+        labels = labels[labels != 0]
+    scores = np.zeros(len(labels))
+    for i, lab in enumerate(labels):
+        in_a = array1 == lab
+        in_b = array2 == lab
+        denom = np.count_nonzero(in_a) + np.count_nonzero(in_b)
+        scores[i] = 2.0 * np.count_nonzero(in_a & in_b) / max(denom, np.finfo(float).eps)
+    return scores

@@ -11,8 +11,29 @@ import numpy as np
 import torch
 
 from .models.vxm import VxmDense
+from .ops import warp as warp_ops
 
-__all__ = ["resolve_registration_model", "build_register_fn", "register_pair"]
+__all__ = ["enable_fast_warp", "resolve_registration_model", "build_register_fn",
+           "build_register_seg_fn", "register_pair"]
+
+
+def _rebuilt(model: VxmDense, **config) -> VxmDense:
+    """A copy of ``model`` with ``config`` fields replaced, same weights."""
+    device = next(model.parameters()).device
+    copy = VxmDense(**{**model.config, **config})
+    copy.load_state_dict(model.state_dict())
+    return copy.to(device).train(model.training)
+
+
+def enable_fast_warp(model: VxmDense, phases: int = 2, halo: int = 2) -> VxmDense:
+    """A copy of ``model`` with the phase-warp inference path on: the moved
+    image is 2^phases bounded warps (the CUDA kernel) by the integration
+    root instead of one full-resolution gather, falling back to the exact
+    gather when the root exceeds ``halo`` (``ops.warp.phase_warp_batched``).
+    Models without integration pass through unchanged."""
+    if model.int_steps > 0:
+        return _rebuilt(model, fast_warp_phases=phases, fast_warp_halo=halo)
+    return model
 
 
 def resolve_registration_model(model: VxmDense,
@@ -26,10 +47,7 @@ def resolve_registration_model(model: VxmDense,
     if not isinstance(model, VxmDense):
         raise NotImplementedError(f"{type(model).__name__} is not ported yet")
     if inshape is not None and tuple(model.inshape) != tuple(inshape):
-        device = next(model.parameters()).device
-        retargeted = VxmDense(**{**model.config, "inshape": tuple(inshape)})
-        retargeted.load_state_dict(model.state_dict())
-        model = retargeted.to(device).eval()
+        model = _rebuilt(model, inshape=tuple(inshape)).eval()
     return model
 
 
@@ -41,6 +59,21 @@ def build_register_fn(model: VxmDense) -> Callable[[torch.Tensor, torch.Tensor],
     def register(moving: torch.Tensor, fixed: torch.Tensor):
         out = model(moving, fixed)
         return out["y_source"], out["pos_flow"]
+
+    return register
+
+
+def build_register_seg_fn(model: VxmDense) -> Callable[
+        [torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, ...]]:
+    """Return fn(moving, fixed, moving_seg) -> (moved, warp, moved_seg): the
+    segmentation rides the same warp (pos_flow) with nearest interpolation."""
+
+    @torch.inference_mode()
+    def register(moving: torch.Tensor, fixed: torch.Tensor, moving_seg: torch.Tensor):
+        out = model(moving, fixed)
+        warp = out["pos_flow"]
+        moved_seg = warp_ops.transform_batched(moving_seg, warp, interp_method="nearest")
+        return out["y_source"], warp, moved_seg
 
     return register
 

@@ -7,7 +7,9 @@ optax's defaults (``torch.optim.Adam``, b1 0.9, b2 0.999, eps 1e-8, with
 optional global-norm clipping as ``optax.clip_by_global_norm`` does it),
 runs epochs of steps from a generator and writes checkpoints in the JAX
 package's ``.npz`` format, with the optimizer state and the step so that a
-run resumes where it stopped. It runs on the GPU unless the caller passes
+run resumes where it stopped, in either package: Adam's moments and step
+count are stored as the JAX ``Trainer`` stores optax's state, and read back
+from a checkpoint of either. It runs on the GPU unless the caller passes
 ``device="cpu"``.
 """
 
@@ -27,8 +29,11 @@ from .models import modelio
 __all__ = ["LossTerm", "make_loss_fn", "Trainer", "MetricsLogger",
            "find_latest_checkpoint", "init_or_resume", "resolve_dtype"]
 
-_OPT = "torch_opt"
-_TRAIN = "torch_train"
+# extra trees of a checkpoint: optax's state leaves, the step and the JAX
+# PRNG key as the JAX Trainer writes them, and the port's own generator state
+_OPT = "opt"
+_TRAIN = "train"
+_TORCH_TRAIN = "torch_train"
 
 
 class LossTerm:
@@ -117,6 +122,12 @@ class MetricsLogger:
             self._file = None
 
 
+def _optax_order(flat_keys):
+    """Flat ``a||b||leaf`` keys in the order of ``jax.tree_util.tree_leaves``
+    over the nested flax params: sorted keys at every level."""
+    return sorted(flat_keys, key=lambda k: k.split("||"))
+
+
 class Trainer:
     """Epoch/step training loop with Adam, checkpoints and metrics.
 
@@ -134,6 +145,7 @@ class Trainer:
         self.lr = lr
         self.clip_norm = clip_norm
         self.loss_fn = make_loss_fn(self.model, self.loss_terms)
+        self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.optimizer = None
@@ -201,39 +213,86 @@ class Trainer:
             logger.close()
         return last_metrics
 
+    def _optax_leaves(self) -> Dict[str, np.ndarray]:
+        """Adam's state as ``optax.adam``'s leaves: the step count, then mu
+        and nu in the flax parameter order, kernels in the JAX layout."""
+        params = dict(self.model.named_parameters())
+        state = self.optimizer.state
+
+        def moments(slot):
+            flat = modelio.params_to_jax({
+                n: state[p][slot] if p in state else torch.zeros_like(p)
+                for n, p in params.items()})
+            return [flat[k] for k in _optax_order(flat)]
+
+        steps = {float(s["step"]) for s in state.values()}
+        if len(steps) > 1:
+            raise ValueError(f"Adam's parameters are at different steps {sorted(steps)}")
+        count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
+        leaves = [count, *moments("exp_avg"), *moments("exp_avg_sq")]
+        return {f"{i:05d}": leaf for i, leaf in enumerate(leaves)}
+
+    def _load_optax_leaves(self, leaves: Dict[str, np.ndarray]) -> None:
+        """Set Adam's state from optax's leaves; raise if they do not map
+        onto this model's parameters."""
+        params = dict(self.model.named_parameters())
+        values = [leaves[k] for k in sorted(leaves)]
+        n = len(params)
+        if len(values) != 1 + 2 * n:
+            raise ValueError(
+                f"the checkpoint's optimizer state has {len(values)} leaves; Adam over this "
+                f"model's {n} parameters has {1 + 2 * n} (count, mu, nu), so it cannot be "
+                "restored")
+        count = np.asarray(values[0])
+        if count.shape != () or not np.issubdtype(count.dtype, np.integer):
+            raise ValueError(f"the optimizer state's first leaf is {count.dtype}{count.shape}, "
+                             "not Adam's integer step count")
+        keys = _optax_order(modelio.params_to_jax(params))
+        mu, nu = (modelio.params_from_jax(dict(zip(keys, part)))
+                  for part in (values[1:1 + n], values[1 + n:]))
+        for name, p in params.items():
+            if mu[name].shape != p.shape or nu[name].shape != p.shape:
+                raise ValueError(f"the optimizer state of {name} has shapes "
+                                 f"{tuple(mu[name].shape)} and {tuple(nu[name].shape)}, the "
+                                 f"parameter {tuple(p.shape)}")
+        sd = self.optimizer.state_dict()
+        sd["state"] = {i: {"step": torch.tensor(float(count), dtype=torch.float32),
+                           "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                       for i, name in enumerate(params)}
+        self.optimizer.load_state_dict(sd)
+
     def save(self, path: str):
         """Write a checkpoint in the JAX package's format: the model's config
-        and params, plus the Adam state, the step and the sampling
-        generator's state under extra keys that the JAX package ignores."""
-        opt = {}
+        and params, Adam's state as optax's leaves and the step as the JAX
+        Trainer writes them (which its ``load`` restores), and the sampling
+        generator's state under a key that the JAX package ignores."""
+        extra = {_TRAIN: {"step": np.asarray(self.global_step, np.int64),
+                          # the JAX Trainer's PRNGKey(seed)
+                          "base_rng": np.asarray([0, self.seed & 0xFFFFFFFF], np.uint32)},
+                 _TORCH_TRAIN: {"generator": self.generator.get_state().numpy()}}
         if self.optimizer is not None:
-            state = self.optimizer.state_dict()["state"]
-            for idx, slots in state.items():
-                for name, val in slots.items():
-                    opt[f"{idx:05d}||{name}"] = val.detach().cpu().numpy()
-        train = {"step": np.asarray(self.global_step, np.int64),
-                 "generator": self.generator.get_state().numpy()}
-        modelio.save_model(path, self.model, extra_trees={_OPT: opt, _TRAIN: train})
+            extra[_OPT] = self._optax_leaves()
+        modelio.save_model(path, self.model, extra_trees=extra)
 
     def load(self, path: str):
-        """Restore the params, and where the checkpoint has them, the Adam
-        state, the step and the sampling generator's state."""
+        """Restore the params and, where the checkpoint has them, Adam's
+        state, the step and the sampling generator's state, from a checkpoint
+        of either package. Raises if its optimizer state cannot be mapped."""
         _, _, flat, extra = modelio.read_checkpoint(path, with_extra=True)
+        if any(k.startswith("torch_opt||") for k in extra):
+            raise ValueError(f"{path} holds Adam's state under torch_opt||, a layout that "
+                             "this version does not read; load its weights with load_model")
         self.model.load_state_dict(modelio.params_from_jax(flat))
         self.init()
         self.loaded_from = path
         opt = {k[len(_OPT) + 2:]: v for k, v in extra.items() if k.startswith(_OPT + "||")}
         if opt:
-            state = {}
-            for key, val in opt.items():
-                idx, name = key.split("||")
-                state.setdefault(int(idx), {})[name] = torch.from_numpy(np.array(val))
-            sd = self.optimizer.state_dict()
-            sd["state"] = state
-            self.optimizer.load_state_dict(sd)
+            self._load_optax_leaves(opt)
         if f"{_TRAIN}||step" in extra:
             self.global_step = int(extra[f"{_TRAIN}||step"])
-            self.generator.set_state(torch.from_numpy(np.array(extra[f"{_TRAIN}||generator"])))
+        if f"{_TORCH_TRAIN}||generator" in extra:
+            self.generator.set_state(
+                torch.from_numpy(np.array(extra[f"{_TORCH_TRAIN}||generator"])))
 
 
 def find_latest_checkpoint(model_dir: str):
