@@ -8,7 +8,9 @@ Run from the root of the repository:
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
-     every CUDA kernel of the port built with nvcc from csrc/, all at once;
+     every CUDA kernel of the port built with nvcc from csrc/, all at once,
+     and the conv kernel's tensor-core instructions (HMMA) counted in its
+     machine code (cuobjdump), which must not be none;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it and at stress shapes, with times
      beside the bound, the plain version and one PyTorch library call;
@@ -19,8 +21,9 @@ Phases:
      tensors (the backward kernel) against the same on the CPU;
   2d. the conv kernel against its plain version at the full-width U-Net's
      11 conv shapes, bfloat16 and float32, forward (both rounding orders)
-     and the input-gradient orientation, bit-equal across two launches, with
-     times beside the bound, the plain version and cuDNN's conv3d;
+     and the input-gradient orientation, on channels-last inputs as the
+     U-Net feeds them, bit-equal across two launches, with times beside the
+     bound, the plain version and cuDNN's conv3d on the same inputs;
   3. the serving path end to end: the committed full-width VxmDense
      checkpoint (160x192x224, bfloat16) registers a synthetic smooth pair
      through build_register_fn; the kernel launch counts of that call must
@@ -28,8 +31,9 @@ Phases:
      CPU run; then the same in float32 (TF32 off) against the port's own
      CPU run, and the bfloat16 outputs against the float32 ones;
   3b. serving with the conv kernel (set_pallas_conv(True), the JAX
-     package's VXM_PALLAS_CONV=1): 11 conv launches per register call, float32
-     kernel mode against float32 cuDNN mode, bfloat16 against float32;
+     package's VXM_PALLAS_CONV=1): 11 conv launches and no layout copy per
+     register call, float32 kernel mode against float32 cuDNN mode, bfloat16
+     against float32;
   3c. --fast-warp (enable_fast_warp) at full width: four halo-2 bounded
      warps by the integration root for the moved image, the warp unchanged;
      the card against the port's CPU run at 80x96x112;
@@ -42,7 +46,7 @@ Phases:
      the committed checkpoint's own recipe (use_probs, NCC, KL, bfloat16);
   4b. training with the conv kernel: one step's loss and gradients against
      cuDNN mode, then three steps that lower the loss, 21 conv launches per
-     step (11 forward, 10 input gradients).
+     step (11 forward, 10 input gradients) and no layout copy.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -86,6 +90,11 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
+TF32_TENSOR_FLOPS_PER_S = 494.7e12
+# the faster route to float32 accuracy for a convolution: three TF32 passes
+# on the tensor cores (the 3xTF32 split of csrc/conv3.cu), not the float32
+# CUDA cores
+F32_CONV_FLOPS_PER_S = TF32_TENSOR_FLOPS_PER_S / 3
 
 # (batch, spatial, channels, halo) of the bounded-warp checks; the first is
 # the serving and training shape (the squaring steps at half resolution)
@@ -186,13 +195,38 @@ def conv_kernel_mode(enabled):
         conv3.set_pallas_conv(None)
 
 
+@contextlib.contextmanager
+def full_float32():
+    """Run cuDNN's float32 convolutions and float32 matrix products in full
+    float32 (cuDNN's default is TF32), then restore the settings."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def reset_launches():
     warp_bounded.launches = warp_bounded_bwd.launches = conv3.conv3_same_cf.launches = 0
+    conv3.conv3_same_cf.layout_copies = 0
 
 
 def read_launches():
+    """Launches of each kernel since reset_launches, and the conv wrapper's
+    layout copies."""
     return {"fwd": warp_bounded.launches, "bwd": warp_bounded_bwd.launches,
-            "conv": conv3.conv3_same_cf.launches}
+            "conv": conv3.conv3_same_cf.launches,
+            "layout_copies": conv3.conv3_same_cf.layout_copies}
+
+
+def tensor_core_instructions(name):
+    """The number of tensor-core (HMMA) instructions in the machine code of
+    the kernel library ``name``, from cuobjdump next to nvcc."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
 
 
 def phase(name):
@@ -354,8 +388,11 @@ def bf16_vs_cpu(moved, warp, moving, fixed):
 
 def register_f32_vs_cpu(moving, fixed):
     """float32 on the card (TF32 off) against the port's CPU run."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with full_float32():
+        return _register_f32_vs_cpu(moving, fixed)
+
+
+def _register_f32_vs_cpu(moving, fixed):
     results = {}
     for device in ("cuda", "cpu"):
         model = load_model(str(CHECKPOINT), device=device, dtype=torch.float32)
@@ -400,6 +437,9 @@ def register_conv_kernel(moving, fixed):
         if launches["conv"] != len(UNET_CONVS) or launches["fwd"] == 0:
             raise AssertionError(f"expected {len(UNET_CONVS)} conv launches and warp launches, "
                                  f"got {launches}")
+        if launches["layout_copies"] != 0:
+            raise AssertionError(f"the register call copied conv inputs to channels-last "
+                                 f"{launches['layout_copies']} times")
         if tuple(warp.shape) != (1, *INSHAPE, 3) or not (
                 torch.isfinite(moved).all() and torch.isfinite(warp).all()):
             raise AssertionError("bad output of the conv-kernel register call")
@@ -411,11 +451,9 @@ def register_conv_kernel(moving, fixed):
         ms = (time.perf_counter() - t0) / reps * 1e3
         log(f"bs1 bfloat16 with the conv kernel: {ms:.2f} ms per pair ({1e3 / ms:.4f} pairs/s)")
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     f32, f32_launches = {}, {}
     for enabled in (True, False):
-        with conv_kernel_mode(enabled):
+        with conv_kernel_mode(enabled), full_float32():
             model = load_model(str(CHECKPOINT), device="cuda", dtype=torch.float32)
             reset_launches()
             f32[enabled] = build_register_fn(model)(moving, fixed)
@@ -638,13 +676,14 @@ def check_grads_gpu_vs_cpu(rng):
             raise AssertionError(f"{name}: GPU and CPU gradients differ")
 
 
-def conv_bound(ci, co, vox, dtype):
+def conv_bound(ci, co, vox, dtype, f32_rate=F32_CONV_FLOPS_PER_S):
     """The least time of one conv on the card: its operations,
-    2 * 27 * ci * co per voxel, at the dense bf16 tensor-core rate or the
-    float32 rate, or its bytes, x read and y written once. Returns (ms,
-    bound_by, seconds of the bytes, seconds of the operations)."""
+    2 * 27 * ci * co per voxel, at the dense bf16 tensor-core rate or, in
+    float32, ``f32_rate`` (three TF32 passes), or its bytes, x read and y
+    written once. Returns (ms, bound_by, seconds of the bytes, seconds of the
+    operations)."""
     t_bytes = (ci + co) * vox * (2 if dtype == torch.bfloat16 else 4) / HBM_BYTES_PER_S
-    rate = BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    rate = BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16 else f32_rate
     t_ops = 2 * 27 * ci * co * vox / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
         t_bytes, t_ops
@@ -655,33 +694,49 @@ def check_conv3(seed):
     conv shapes: the forward in both rounding orders and the input-gradient
     orientation (taps flipped, ci and co swapped, no bias or activation),
     within conv3.kernel_tolerance and bit-equal across two launches; times of
-    the rounding order the main path uses. Returns the rows and the totals by
-    (dtype, orientation) over the convs a register call (forward) and a train
-    step (input gradient: all but the first) run."""
+    the rounding order the main path uses; cuDNN's float32 in full float32,
+    as the kernel computes. Returns the rows and the totals by (dtype,
+    orientation) over the convs a register call (forward) and a train step
+    (input gradient: all but the first) run."""
+    with full_float32():
+        return _check_conv3(seed)
+
+
+def _check_conv3(seed):
     rows, totals = [], {}
     gen = torch.Generator(device="cuda").manual_seed(seed)  # data made on the card
+    cl = torch.channels_last_3d  # the layout the U-Net keeps in conv-kernel mode
     for dtype in (torch.bfloat16, torch.float32):
         elem = 2 if dtype == torch.bfloat16 else 4
         for index, (D, H, W, ci, co) in enumerate(UNET_CONVS):
             vox = D * H * W
-            x = torch.randn((1, ci, D, H, W), generator=gen, device="cuda").to(dtype)
-            g = torch.randn((1, co, D, H, W), generator=gen, device="cuda").to(dtype)
+            x = torch.randn((1, ci, D, H, W), generator=gen, device="cuda").to(dtype).contiguous(
+                memory_format=cl)
+            g = torch.randn((1, co, D, H, W), generator=gen, device="cuda").to(dtype).contiguous(
+                memory_format=cl)
             kernel = torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda") * \
                 (2.0 / (27 * ci)) ** 0.5
             bias = 0.1 * torch.randn(co, generator=gen, device="cuda")
             flipped = kernel.flip(0, 1, 2).transpose(3, 4)
             path_order = not conv3.jax_kernel_takes(ci, co, D, H, W, elem, elem)
+            # the forward as the U-Net calls it; the input gradient as the
+            # backward calls it (conv3_input_grad flips the taps itself), its
+            # plain version and cuDNN with the flipped, transposed taps
             cases = {
-                "fwd": (x, kernel, bias, 0.2, [path_order, not path_order], (ci, co)),
-                "dx": (g, flipped, torch.zeros(ci, device="cuda"), None, [False], (co, ci)),
+                "fwd": (x, kernel, bias, 0.2, [path_order, not path_order], (ci, co),
+                        lambda order, x=x, kernel=kernel, bias=bias: conv3.conv3_same_cf(
+                            x, kernel, bias, act_slope=0.2, round_conv_first=order)),
+                "dx": (g, flipped, torch.zeros(ci, device="cuda"), None, [False], (co, ci),
+                       lambda order, g=g, kernel=kernel: conv3.conv3_input_grad(g, kernel)),
             }
-            for orientation, (inp, k, b, slope, orders, (c_in, c_out)) in cases.items():
+            for orientation, (inp, k, b, slope, orders, (c_in, c_out), launch) in \
+                    cases.items():
                 err = ratio = 0.0
                 equal_share = 1.0
                 repeatable = True
                 for order in orders:
-                    y = conv3.conv3_same_cf(inp, k, b, act_slope=slope, round_conv_first=order)
-                    y2 = conv3.conv3_same_cf(inp, k, b, act_slope=slope, round_conv_first=order)
+                    y = launch(order)
+                    y2 = launch(order)
                     plain = conv3.conv3_same_cf_plain(inp, k, b, slope, None, order)
                     torch.cuda.synchronize()
                     diff = (y.float() - plain.float()).abs()
@@ -694,13 +749,15 @@ def check_conv3(seed):
                 w_lib = k.permute(4, 3, 0, 1, 2).to(dtype).contiguous()
                 b_lib = b.to(dtype)
                 bound_ms, bound_by, t_bytes, t_ops = conv_bound(c_in, c_out, vox, dtype)
+                # float32's bound at the CUDA-core rate (the bound stated before
+                # the tensor-core kernel), for comparison
+                cuda_core_ms = conv_bound(c_in, c_out, vox, dtype, F32_FLOPS_PER_S)[0]
                 row = dict(
                     conv=index, orientation=orientation, dtype=str(dtype).split(".")[1],
                     shape=[1, c_in, D, H, W], co=c_out, round_conv_first=order,
                     max_abs_err=err, max_err_over_tol=ratio, equal_share=equal_share,
                     repeatable=repeatable,
-                    ms=time_cuda_ms(lambda: conv3.conv3_same_cf(
-                        inp, k, b, act_slope=slope, round_conv_first=order)),
+                    ms=time_cuda_ms(lambda: launch(order)),
                     plain_ms=time_cuda_ms(lambda: conv3.conv3_same_cf_plain(
                         inp, k, b, slope, None, order), reps=3, warmup=1),
                     library_ms=time_cuda_ms(lambda: F.conv3d(inp, w_lib, b_lib, padding=1)),
@@ -720,8 +777,9 @@ def check_conv3(seed):
                 if orientation == "fwd" or index > 0:
                     t = totals.setdefault((row["dtype"], orientation), dict(
                         convs=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                        t_bytes=0.0, t_ops=0.0))
+                        t_bytes=0.0, t_ops=0.0, cuda_core_bound_ms=0.0))
                     t["convs"] += 1
+                    t["cuda_core_bound_ms"] += cuda_core_ms
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                         t[key] += row[key]
                     t["t_bytes"] += t_bytes
@@ -729,9 +787,12 @@ def check_conv3(seed):
             del x, g, kernel, flipped
     for (dtype, orientation), t in totals.items():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+        f32_note = (f"; at the float32 CUDA-core rate the bound was "
+                    f"{t['cuda_core_bound_ms']:.4f} ms" if dtype == "float32" else "")
+        t.pop("cuda_core_bound_ms")
         log(f"conv3 {dtype} {orientation}, {t['convs']} convs: kernel {t['ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, cuDNN "
-            f"{t['library_ms']:.4f} ms")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}{f32_note}), plain {t['plain_ms']:.4f} "
+            f"ms, cuDNN {t['library_ms']:.4f} ms")
     return rows, totals
 
 
@@ -895,6 +956,9 @@ def train_conv_kernel(moving, fixed, profile):
     if runs[True][2]["conv"] != expected or runs[False][2]["conv"] != 0 or \
             runs[True][2]["bwd"] == 0:
         raise AssertionError(f"expected {expected} conv launches and warp launches per step")
+    if runs[True][2]["layout_copies"] != 0:
+        raise AssertionError(f"a train step copied conv inputs or cotangents to channels-last "
+                             f"{runs[True][2]['layout_copies']} times")
     compare_grads(f"conv kernel vs cuDNN, flow head N(0, {FLOW_STD}), {INSHAPE}",
                   runs[True][0], runs[True][1], runs[False][0], runs[False][1],
                   TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
@@ -921,6 +985,8 @@ def train_conv_kernel(moving, fixed, profile):
             raise AssertionError(f"three steps did not lower the loss: {step_losses}")
         if any(p["conv"] != expected or p["fwd"] == 0 or p["bwd"] == 0 for p in per_step):
             raise AssertionError(f"a step missed a kernel: {per_step}")
+        if any(p["layout_copies"] != 0 for p in per_step):
+            raise AssertionError(f"a step copied conv inputs to channels-last: {per_step}")
         if profile:
             profile_device("train step, conv kernel", lambda: trainer.train_step(
                 (moving, fixed), (fixed, zero))["loss"].item(), rows=30)
@@ -993,6 +1059,10 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    hmma = tensor_core_instructions("conv3")
+    log(f"conv3: {hmma} tensor-core instructions (HMMA) in libconv3.so")
+    if hmma == 0:
+        raise AssertionError("the conv kernel has no tensor-core instructions")
     log(f"phase 1: {time.perf_counter() - t:.2f} s")
 
     t = phase("2. warp_bounded kernel vs plain version")
@@ -1078,7 +1148,7 @@ def main(argv=None) -> int:
         ms=conv_serving["ms"], plain_ms=conv_serving["plain_ms"],
         bound_ms=conv_serving["bound_ms"], bound_by=conv_serving["bound_by"],
         library_ms=conv_serving["library_ms"], register_conv_ms_per_pair=conv_ms,
-        train_step_conv=conv_train)]
+        train_step_conv=conv_train, tensor_core_instructions=hmma)]
     log(f"\ntotal {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

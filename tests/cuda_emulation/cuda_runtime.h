@@ -1,9 +1,11 @@
 // Stand-in for <cuda_runtime.h> that runs a CUDA C++ kernel on the CPU, for
-// tests on machines without a GPU or nvcc. Each block runs in turn, with one
-// std::thread per CUDA thread and a std::barrier for __syncthreads(). The
+// tests on machines without a GPU or nvcc. The blocks run in turn, on one
+// std::thread per CUDA thread, with a std::barrier for __syncthreads(). The
 // `<<<grid, block, smem, stream>>>` launch and `extern __shared__` arrays
 // are rewritten by the test (tests/test_torch_kernel_emulation.py) into
 // emu_launch(...) and a pointer to emu_shared_memory.
+// <cuda_pipeline_primitives.h> beside it stands in for the asynchronous
+// copies, and tensor_core.cuh for csrc/tensor_core.cuh.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -13,13 +15,17 @@
 struct float4 {
   float x, y, z, w;
 };
+struct uint4 {
+  unsigned x, y, z, w;
+};
+static inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-thread_local dim3 threadIdx, blockIdx;
+thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 static std::barrier<>* emu_barrier = nullptr;
-static float emu_shared_memory[232448 / sizeof(float)];
+alignas(128) static float emu_shared_memory[232448 / sizeof(float)];
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -30,6 +36,8 @@ static cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 #define __global__
 #define __device__
+#define __host__
+#define __align__(n) alignas(n)
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __syncthreads() emu_barrier->arrive_and_wait()
@@ -39,21 +47,29 @@ static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 
 template <class K, class... A>
 void emu_launch(dim3 grid, dim3 block, K kernel, A... args) {
-  for (unsigned bz = 0; bz < grid.z; ++bz)
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(block.x * block.y * block.z);
-        emu_barrier = &bar;
-        std::vector<std::thread> threads;
-        for (unsigned tz = 0; tz < block.z; ++tz)
-          for (unsigned ty = 0; ty < block.y; ++ty)
-            for (unsigned tx = 0; tx < block.x; ++tx)
-              threads.emplace_back([=, &bar] {
-                threadIdx = dim3(tx, ty, tz);
-                blockIdx = dim3(bx, by, bz);
-                kernel(args...);
-                bar.arrive_and_drop();  // a thread that has returned waits no more
-              });
-        for (auto& t : threads) t.join();
-      }
+  // one std::thread per CUDA thread of a block, kept for all the blocks,
+  // which run one after another; a fresh barrier for each block's
+  // __syncthreads(), which a thread leaves when it returns from the kernel
+  const unsigned n = block.x * block.y * block.z;
+  std::barrier<> between(n);
+  std::barrier<>* inner = nullptr;
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < n; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
+      blockDim = block;
+      gridDim = grid;
+      for (unsigned bz = 0; bz < grid.z; ++bz)
+        for (unsigned by = 0; by < grid.y; ++by)
+          for (unsigned bx = 0; bx < grid.x; ++bx) {
+            if (t == 0) inner = emu_barrier = new std::barrier<>(n);
+            between.arrive_and_wait();  // the block's barrier exists
+            blockIdx = dim3(bx, by, bz);
+            kernel(args...);
+            inner->arrive_and_drop();   // a thread that has returned waits no more
+            between.arrive_and_wait();  // the block is done
+            if (t == 0) delete inner;
+          }
+    });
+  for (auto& t : threads) t.join();
 }

@@ -61,3 +61,20 @@ def test_build_failure_names_the_source(tmp_path, monkeypatch):
 def test_nvcc_flags_target_hopper():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+
+
+def test_build_rebuilds_after_a_shared_header_changes(tmp_path, monkeypatch):
+    """A library newer than its source and the build module but older than a
+    header of csrc/ (where tensor_core.cuh lives) is rebuilt."""
+    _fake_nvcc(tmp_path, monkeypatch)
+    _build.build(["conv3"])
+    assert _build.build(["conv3"]) == {}
+    headers = tmp_path / "csrc"
+    headers.mkdir()
+    (headers / "shared.cuh").write_text("// a header")
+    monkeypatch.setattr(_build, "_SRC", headers)
+    newest = max(os.stat(p).st_mtime for p in (_build.SOURCES["conv3"], _build.__file__))
+    lib = _build.library_path("conv3")
+    os.utime(lib, (newest + 1, newest + 1))
+    os.utime(headers / "shared.cuh", (newest + 2, newest + 2))
+    assert sorted(_build.build(["conv3"])) == ["conv3"]

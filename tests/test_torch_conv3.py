@@ -11,6 +11,8 @@ sides sum in other orders); bfloat16: one bf16 step, 2^-7 of |y|,
 elementwise. The model-level checks are in ``test_torch_conv3_model.py``.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,3 +134,65 @@ def test_lean_dw_matches_jax(shape, nd):
     grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (xt, kt, bt))
     for name, ours, theirs in zip(("dx", "dkernel", "dbias"), grads, ref_grads):
         assert_close(ours.numpy(), np.asarray(theirs), 2e-4, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tile_plan_fills_the_card_at_full_width(dtype):
+    """Every conv of the full-width U-Net, forward and input gradient, gets
+    a tile of whole warps that fits in shared memory and launches at least
+    one block per SM of an H100 (132)."""
+    for D, H, W, ci, co in FULL_WIDTH:
+        for c_out in (co, ci):
+            mf, nf, nwarps, tz, ty, txf = conv3.tile_plan(1, D, H, W, c_out, dtype)
+            assert tz * ty * txf == nwarps * mf and 1 <= nwarps <= 8 and 1 <= nf <= 3
+            assert mf in (1, conv3._MF_BIG[dtype])
+            blocks = -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * -(-c_out // (16 * nf))
+            assert blocks >= 132, (D, H, W, ci, co, c_out)
+            halo = (tz + 2) * (ty + 2) * (16 * txf + 2)
+            assert conv3._STAGES[dtype] * conv3._stage_bytes(halo, nf, dtype) <= 232448
+
+
+def _shifted_dw_db_channels_first(x, gf):
+    """The weight gradient over channels-first storage, as it was computed
+    before it read channels-last: the reference the new version is held to."""
+    B, ci, *S = x.shape
+    co = gf.shape[1]
+    nd = len(S)
+    xpad, gpad = [], []
+    for axis in reversed(range(nd)):
+        xpad += [1, 2] if axis == 0 else [1, 1]
+        gpad += [0, 0] if axis == 0 else [0, 2]
+    xp = torch.nn.functional.pad(x.float(), xpad).reshape(B, ci, -1)
+    gp = torch.nn.functional.pad(gf.float(), gpad)
+    n = gp[0, 0].numel()
+    gflat = gp.reshape(B, co, n).transpose(1, 2)
+    strides = [1] * nd
+    for axis in reversed(range(nd - 1)):
+        strides[axis] = strides[axis + 1] * (S[axis + 1] + 2)
+    taps = []
+    for tap in itertools.product(range(3), repeat=nd):
+        off = sum(t * s for t, s in zip(tap, strides))
+        taps.append(torch.matmul(xp[:, :, off:off + n], gflat).sum(0))
+    dw = torch.stack(taps, 0).reshape(*((3,) * nd), ci, co)
+    return dw, gf.float().sum(dim=(0, *range(2, nd + 2)))
+
+
+@pytest.mark.parametrize("layout", ["channels_first", "channels_last"])
+@pytest.mark.parametrize("spatial", [(11,), (7, 9), (5, 6, 7)], ids=["1d", "2d", "3d"])
+def test_shifted_dw_db_reads_channels_last(spatial, layout):
+    """dw and db over N = 1, 2, 3 spatial axes from tensors in either
+    layout (channels-last: the storage of ``(B, *S, C)``, as the conv
+    kernel's outputs and the lean-dw path's inputs lie), against the
+    channels-first computation, within 1e-6 of each one's largest entry."""
+    rng = np.random.default_rng(len(spatial))
+    x = torch.from_numpy(rng.normal(size=(2, *spatial, 5)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, *spatial, 3)).astype(np.float32))
+    if layout == "channels_last":
+        x, g = x.movedim(-1, 1), g.movedim(-1, 1)
+    else:
+        x, g = x.movedim(-1, 1).contiguous(), g.movedim(-1, 1).contiguous()
+    dw, db = conv3._shifted_dw_db(x, g)
+    ref_dw, ref_db = _shifted_dw_db_channels_first(x.contiguous(), g.contiguous())
+    assert dw.shape == ref_dw.shape and db.shape == ref_db.shape
+    for ours, ref in ((dw, ref_dw), (db, ref_db)):
+        assert (ours - ref).abs().max() <= 1e-6 * ref.abs().max()

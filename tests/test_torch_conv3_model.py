@@ -138,13 +138,17 @@ def test_checkpoint_bfloat16_kernel_mode_matches_jax(kernel_mode):
         assert_close(out[key].numpy(), expected, tol, key)
 
 
-@pytest.mark.parametrize("switch", ["VXM_PALLAS_CONV", "VXM_XLA_DW_EINSUM"])
+@pytest.mark.parametrize("switch", ["VXM_PALLAS_CONV", "VXM_XLA_DW_EINSUM",
+                                    "VXM_PALLAS_CONV,channels_last"])
 def test_train_step_under_the_switch_matches_jax(monkeypatch, interpret, switch):
     """One float32 step of the default recipe with the switch set for both
     packages: every conv block takes the switch's path in the port, and the
     loss and parameter gradients equal JAX's within 1e-4 of each tensor's
     largest entry, the params after the Adam step within 2e-3 of their
-    change (test_train_steps_match_jax's tolerances)."""
+    change (test_train_steps_match_jax's tolerances). ``channels_last``:
+    the conv-kernel path is also held to its layout, every conv block's
+    input and output channels-last and no layout copy in the forward."""
+    switch, _, layout = switch.partition(",")
     monkeypatch.setenv("VXM_WINDOW_HALO", "0")
     monkeypatch.setenv(switch, "1")
     calls = {"conv3_same_cf": 0, "conv3_same_lean_dw": 0}
@@ -169,8 +173,18 @@ def test_train_step_under_the_switch_matches_jax(monkeypatch, interpret, switch)
 
     trainer = Trainer(model, _terms(losses, LossTerm), lr=1e-4, device="cpu")
     model.train()
+    layouts = []
+    if layout:
+        cl = torch.channels_last_3d
+        for m in model.modules():
+            if isinstance(m, ConvBlock):
+                m.register_forward_hook(lambda m, i, o: layouts.append(
+                    (i[0].is_contiguous(memory_format=cl), o.is_contiguous(memory_format=cl))))
+        conv3.conv3_same_cf.layout_copies = 0
     loss, _ = trainer.loss_fn(tuple(map(torch.from_numpy, inputs)),
                               tuple(map(torch.from_numpy, targets)))
+    if layout:
+        assert layouts == [(True, True)] * 4 and conv3.conv3_same_cf.layout_copies == 0
     loss.backward()
     n_blocks = 4  # enc_conv_0_0, enc_conv_1_0, dec_conv_1_0, dec_conv_0_0
     expected = "conv3_same_cf" if switch == "VXM_PALLAS_CONV" else "conv3_same_lean_dw"

@@ -18,7 +18,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build", "load", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "library_path", "load", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -48,12 +48,13 @@ def nvcc_path() -> str:
                        "voxelmorph_tpu_torch are built at first use with nvcc")
 
 
-def _library(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the kernel library ``name`` is built."""
     return _OUT / f"lib{name}.so"
 
 
 def _stale(name: str) -> bool:
-    lib = _library(name)
+    lib = library_path(name)
     if not lib.is_file():
         return True
     deps = [SOURCES[name], Path(__file__).resolve(), *_SRC.glob("*.cuh")]
@@ -88,7 +89,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
             failed.append(f"nvcc failed for {SOURCES[name].name} "
                           f"(exit {proc.returncode}):\n{logs[name]}")
         else:
-            os.replace(tmps[name], _library(name))
+            os.replace(tmps[name], library_path(name))
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
@@ -99,6 +100,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_library(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib

@@ -14,7 +14,11 @@ run on cuDNN, as the JAX package runs them on XLA's ``nn.Conv`` by default;
 the JAX package's two switches choose otherwise, as there: with
 ``VXM_PALLAS_CONV=1`` (``ops.conv3.set_pallas_conv``) every 3-D conv block
 runs the port's conv kernel (``ops.conv3``), and with ``VXM_XLA_DW_EINSUM=1``
-the lean-dw convolution.
+the lean-dw convolution. In the conv-kernel mode the network keeps the
+kernel's channels-last memory layout (``torch.channels_last_3d``) from its
+input to its output, in the forward and the backward: the max pool, the
+nearest upsampling and the skip concatenation all keep it, so a
+channels-last input is never copied to another layout.
 """
 
 from __future__ import annotations
@@ -107,10 +111,21 @@ class ConvBlock(nn.Module):
         return F.leaky_relu(out + bias.view(-1, *([1] * self.ndims)), 0.2)
 
 
-def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int) -> torch.Tensor:
-    for d in range(ndims):
-        x = torch.repeat_interleave(x, factor, dim=d + 2)
-    return x
+def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int,
+                      channels_last: bool = False) -> torch.Tensor:
+    """Nearest upsampling of ``(B, C, *S)`` by ``factor`` on every spatial
+    axis, as one broadcast copy (the values of ``repeat_interleave`` on each
+    axis, bit for bit). The result is contiguous, or channels-last in memory
+    (the broadcast taken over the ``(B, *S, C)`` view) with
+    ``channels_last``."""
+    if channels_last:
+        x = x.movedim(1, -1)
+    first = 1 if channels_last else 2  # the first spatial axis
+    lead, spatial, trail = x.shape[:first], x.shape[first:first + ndims], x.shape[first + ndims:]
+    out = x[(slice(None),) * first + (slice(None), None) * ndims].expand(
+        *lead, *[n for size in spatial for n in (size, factor)], *trail)
+    out = out.reshape(*lead, *[size * factor for size in spatial], *trail)
+    return out.movedim(-1, 1) if channels_last else out
 
 
 def _pad_to(x: torch.Tensor, shape, value: float) -> torch.Tensor:
@@ -128,9 +143,9 @@ class _MaxPool(torch.autograd.Function):
     regions, such as image backgrounds, make ties the norm."""
 
     @staticmethod
-    def forward(ctx, x, window, ndims):
+    def forward(ctx, x, window, ndims, channels_last):
         out = getattr(F, f"max_pool{ndims}d")(x, window, window)
-        ctx.window, ctx.ndims = window, ndims
+        ctx.window, ctx.ndims, ctx.channels_last = window, ndims, channels_last
         ctx.save_for_backward(x, out)
         return out
 
@@ -138,22 +153,25 @@ class _MaxPool(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, out = ctx.saved_tensors
-        window, ndims = ctx.window, ctx.ndims
+        window, ndims, last = ctx.window, ctx.ndims, ctx.channels_last
         # VALID pooling drops the edges past a whole window: zero gradient there
-        up = _pad_to(_upsample_nearest(out, window, ndims), x.shape, -float("inf"))
-        gu = _pad_to(_upsample_nearest(g, window, ndims), x.shape, 0.0)
+        up = _pad_to(_upsample_nearest(out, window, ndims, last), x.shape, -float("inf"))
+        gu = _pad_to(_upsample_nearest(g, window, ndims, last), x.shape, 0.0)
         mask = x == up
         # ties per window, each tied element takes an equal share
         count = getattr(F, f"avg_pool{ndims}d")(
             mask.to(torch.float32), window, window) * window ** ndims
-        count = _pad_to(_upsample_nearest(count.to(g.dtype), window, ndims), x.shape, 1.0)
-        return torch.where(mask, gu / count, torch.zeros_like(gu)), None, None
+        count = _pad_to(_upsample_nearest(count.to(g.dtype), window, ndims, last), x.shape,
+                        1.0)
+        return torch.where(mask, gu / count, torch.zeros_like(gu)), None, None, None
 
 
-def max_pool(x: torch.Tensor, window: int, ndims: int) -> torch.Tensor:
+def max_pool(x: torch.Tensor, window: int, ndims: int,
+             channels_last: bool = False) -> torch.Tensor:
     """Non-overlapping max pool of ``(B, C, *S)`` (VALID: odd edges are
-    dropped), with the tie-splitting backward of the JAX package."""
-    return _MaxPool.apply(x, window, ndims)
+    dropped), with the tie-splitting backward of the JAX package; with
+    ``channels_last`` the backward's gradient is channels-last in memory."""
+    return _MaxPool.apply(x, window, ndims, channels_last)
 
 
 class Unet(nn.Module):
@@ -205,19 +223,21 @@ class Unet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ncpl = self.nb_conv_per_level
+        # the conv kernel's layout, kept between its convs
+        cl = conv3.pallas_conv_enabled() and self.ndims == 3
         enc_layers = []
         last = x.to(self.dtype)
         for level in range(self.nb_levels - 1):
             for conv in range(ncpl):
                 last = getattr(self, f"enc_conv_{level}_{conv}")(last)
             enc_layers.append(last)
-            last = max_pool(last, self.max_pool[level], self.ndims)
+            last = max_pool(last, self.max_pool[level], self.ndims, cl)
         for level in range(self.nb_levels - 1):
             real_level = self.nb_levels - level - 2
             for conv in range(ncpl):
                 last = getattr(self, f"dec_conv_{real_level}_{conv}")(last)
             if level < self.nb_levels - 1 - self.nb_upsample_skips:
-                last = _upsample_nearest(last, self.max_pool[real_level], self.ndims)
+                last = _upsample_nearest(last, self.max_pool[real_level], self.ndims, cl)
                 last = torch.cat([last, enc_layers.pop()], dim=1)
         for num in range(len(self.final_convs)):
             last = getattr(self, f"dec_final_conv_{num}")(last)

@@ -8,16 +8,22 @@ convolution with bias and an optional fused LeakyReLU,
 with zero padding, f32 accumulation and one rounding to the output dtype.
 Public functions keep the JAX package's layouts: ``kernel`` is
 ``(3, 3, 3, ci, co)``, ``conv3_same_cf`` takes ``(B, ci, D, H, W)`` and
-``conv3_same`` channels-last ``(B, D, H, W, ci)``.
+``conv3_same`` channels-last ``(B, D, H, W, ci)``. In memory both are
+channels-last: ``conv3_same_cf`` computes on ``torch.channels_last_3d``
+tensors (NDHWC storage) and returns one; an input in another layout is
+copied once, and ``conv3_same_cf.layout_copies`` counts those copies.
+``conv3_same`` is a view on both sides.
 
 On CUDA tensors the forward, and the input gradient of the backward (the same
 convolution with the taps flipped and ci and co swapped), launch the
-hand-written kernel of ``csrc/conv3.cu`` for every shape, or raise. On CPU
+hand-written kernel of ``csrc/conv3.cu`` for every shape, or raise: on the
+tensor cores (``tile_plan`` picks the tile per shape), but for the float32
+forward, which sums on the CUDA cores in cuDNN's order (``_conv3``). On CPU
 tensors they run ``conv3_same_cf_plain``, which follows the Pallas kernel's
 own formulation: im2col of the 27 taps in ``[dz, dy, dx, ci]`` order and one
 matrix product per z-slab chunk. The weight and bias gradients are 27
-shifted contractions over (batch, voxels), plain matrix products on both
-devices, as the JAX package leaves them to XLA.
+shifted contractions over (batch, voxels), plain matrix products over the
+channels-last storage on both devices, as the JAX package leaves them to XLA.
 
 ``round_conv_first`` chooses where the output is rounded. The JAX package's
 ``VXM_PALLAS_CONV=1`` mode rounds once after bias and activation (in f32)
@@ -35,6 +41,7 @@ Pallas kernel in the JAX package, so it has no CUDA kernel here.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import os
 from typing import Optional
@@ -46,13 +53,28 @@ from .. import _build
 
 __all__ = ["set_pallas_conv", "pallas_conv_enabled", "set_xla_dw_einsum",
            "xla_dw_einsum_enabled", "jax_kernel_takes", "conv3_same_cf_plain",
-           "kernel_tolerance", "conv3_same_cf", "conv3_same", "conv3_same_lean_dw"]
+           "kernel_tolerance", "tile_plan", "fma_tile_plan", "conv3_same_cf",
+           "conv3_input_grad", "conv3_same", "conv3_same_lean_dw"]
 
 _FORCED = None     # process-local override of VXM_PALLAS_CONV
 _FORCED_DW = None  # process-local override of VXM_XLA_DW_EINSUM
 
-# output channels per block of the CUDA kernel (csrc/conv3.cu: CO_BLK)
-_CO_BLK = 16
+_CL = torch.channels_last_3d
+# the CUDA kernel's fragments (csrc/conv3.cu): rows of 16 x-voxels, groups
+# of 16 output channels; input channels staged KC at a time (32 bytes)
+_FR = 16
+_KC = {torch.bfloat16: 16, torch.float32: 8}
+# M fragments of a warp in the kernel's large tiles (Mma<T>::MF)
+_MF_BIG = {torch.bfloat16: 4, torch.float32: 2}
+_MAX_WARPS = 8
+# chunks of the input staged at a time (csrc/conv3.cu: Mma<T>::STAGES)
+_STAGES = {torch.bfloat16: 1, torch.float32: 2}
+_SMEM_LIMIT = 232448
+# streaming multiprocessors of an H100: the least number of blocks a conv
+# launches where its shape allows
+_MIN_BLOCKS = 132
+# voxels a row of a halo tile costs to stage beyond its own (tile_plan)
+_ROW_COST = 16
 # bytes of f32 im2col columns the plain version builds at a time
 _PLAIN_CHUNK_BYTES = 256 * 2 ** 20
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -151,18 +173,21 @@ def conv3_same_cf_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tenso
     """The convolution as the Pallas kernel formulates it, with plain ops.
 
     x: ``(B, ci, D, H, W)``; kernel ``(3, 3, 3, ci, co)`` and bias ``(co,)``
-    are first rounded to x's dtype. The 27 shifted taps of the zero-padded
+    (None: zero) are first rounded to x's dtype. The 27 shifted taps of the zero-padded
     input are stacked in ``[dz, dy, dx, ci]`` order (im2col) for a chunk of
     z-planes at a time and multiplied by the ``(co, 27 ci)`` weight matrix in
-    f32. Returns ``(B, co, D, H, W)`` in ``out_dtype`` (default x's dtype).
+    f32. Returns ``(B, co, D, H, W)`` in ``out_dtype`` (default x's dtype),
+    channels-last in memory.
     """
     B, ci, D, H, W = x.shape
     co = kernel.shape[-1]
     out_dtype = out_dtype or x.dtype
+    if bias is None:
+        bias = x.new_zeros(co)
     wmat = kernel.to(x.dtype).float().permute(4, 0, 1, 2, 3).reshape(co, 27 * ci)
     b = bias.to(x.dtype).float()
     xp = F.pad(x.float(), (1, 1, 1, 1, 1, 1))
-    out = torch.empty((B, co, D, H, W), dtype=out_dtype, device=x.device)
+    out = torch.empty((B, co, D, H, W), dtype=out_dtype, device=x.device, memory_format=_CL)
     planes = max(1, min(D, _PLAIN_CHUNK_BYTES // (27 * ci * H * W * 4 * B)))
     for z0 in range(0, D, planes):
         n = min(planes, D - z0)
@@ -194,56 +219,174 @@ def kernel_tolerance(plain: torch.Tensor, bias: torch.Tensor,
 
 # --- the CUDA kernel ----------------------------------------------------------
 
-def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first):
+def _stage_bytes(halo_voxels, nf, dtype):
+    elem = 2 if dtype == torch.bfloat16 else 4
+    return halo_voxels * 32 + 27 * _KC[dtype] * _FR * nf * elem
+
+
+def _n_fragments(co: int) -> int:
+    """N fragments of 16 output channels a block computes: all of co up to
+    48, else groups of 32."""
+    return -(-co // _FR) if co <= 3 * _FR else 2
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(B: int, D: int, H: int, W: int, co: int, dtype) -> tuple:
+    """The CUDA kernel's tile for a conv: ``(mf, nf, nwarps, tz, ty, txf)``.
+
+    A block of ``nwarps`` warps computes ``tz x ty x 16 txf`` output voxels,
+    rows of 16 x-voxels of which each warp owns ``mf``, for ``16 nf`` output
+    channels. The largest tile that still gives ``_MIN_BLOCKS`` blocks is
+    taken (one block per SM of an H100 at least), and of its shapes the one
+    that stages the least: the voxels of all its blocks' halo tiles (ragged
+    edges included), plus ``_ROW_COST`` for each row of a halo tile, which
+    a warp stages at once (on an H100 a 4 x 4 x 32 bfloat16 tile beat a
+    4 x 8 x 16 one). The deep convs of the U-Net get one row of one warp
+    per block.
+    """
+    nf0 = _n_fragments(co)
+    xf = -(-W // _FR)
+    mfb = _MF_BIG[dtype]
+    for mf, nwarps, nf in ((mfb, 8, nf0), (mfb, 4, nf0), (1, 4, nf0), (1, 2, nf0),
+                           (1, 1, nf0), (1, 1, 1)):
+        rows = mf * nwarps
+        groups = -(-co // (_FR * nf))
+        best = None
+        for tz in range(1, rows + 1):
+            for ty in range(1, rows // tz + 1):
+                if rows % (tz * ty) or rows // (tz * ty) > xf:
+                    continue
+                txf = rows // (tz * ty)
+                halo = (tz + 2) * (ty + 2) * (_FR * txf + 2)
+                smem = max(_STAGES[dtype] * _stage_bytes(halo, nf, dtype),
+                           rows * _FR * _FR * nf * 4)
+                if smem > _SMEM_LIMIT:
+                    continue
+                blocks = B * -(-D // tz) * -(-H // ty) * -(-xf // txf) * groups
+                cost = blocks * (halo + _ROW_COST * (tz + 2) * (ty + 2))
+                if best is None or cost < best[0]:
+                    best = (cost, blocks, (mf, nf, nwarps, tz, ty, txf))
+        if best[1] >= _MIN_BLOCKS:
+            break
+    return best[2]
+
+
+def fma_tile_plan(B: int, D: int, H: int, co: int) -> tuple:
+    """The tile ``(tz, ty)`` of the float32 CUDA-core kernel: blocks of
+    ``tz x ty x 32`` voxels for 16 output channels, the largest that still
+    gives ``_MIN_BLOCKS`` blocks along z, y and the channels alone, and no
+    smaller than 2 x 4 x 32 (64 threads): on an H100, blocks of one row of
+    8 threads made the deep convs slower than fewer, larger blocks."""
+    groups = -(-co // _FR)
+    for tz, ty in ((4, 8), (2, 8), (2, 4)):
+        if B * -(-D // tz) * -(-H // ty) * groups >= _MIN_BLOCKS:
+            break
+    return tz, ty
+
+
+def _kernel_args(x, kernel, bias, act_slope, round_conv_first, plan=None, f32_fma=False):
+    """The arguments of ``vxm_conv3_fwd`` (``csrc/conv3.cu``) but the stream.
+
+    x: ``(B, ci, D, H, W)``, channels-last in memory; kernel ``(3, 3, 3, ci,
+    co)`` and bias ``(co,)`` (None: no bias) are rounded to x's dtype, the
+    kernel laid out ``(27, co, ci)``. ``plan`` is the tensor-core tile
+    (default ``tile_plan``); ``f32_fma`` runs float32 on the CUDA cores in
+    cuDNN's order instead, ``plan`` then its ``(tz, ty)`` (default
+    ``fma_tile_plan``). Returns ``(y, operands, args)``: the output to
+    be written (channels-last), the tensors that ``args``' pointers point
+    into, to be kept alive until the kernel has run, and the arguments.
+    """
+    B, ci, D, H, W = x.shape
+    co = kernel.shape[-1]
+    if f32_fma:
+        plan = (0, 0, 0, *(plan or fma_tile_plan(B, D, H, co)), 0)
+    else:
+        plan = plan or tile_plan(B, D, H, W, co, x.dtype)
+    w = kernel.to(x.dtype).reshape(27, ci, co).transpose(1, 2).contiguous()
+    b = None if bias is None else bias.to(x.dtype).contiguous()
+    y = torch.empty((B, co, D, H, W), dtype=x.dtype, device=x.device, memory_format=_CL)
+    args = (x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+            B, ci, co, D, H, W, int(x.dtype == torch.bfloat16), int(act_slope is not None),
+            _slope(act_slope, round_conv_first, x.dtype), int(round_conv_first), int(f32_fma),
+            *plan)
+    return y, (x, w, b), args
+
+
+@functools.lru_cache(maxsize=None)
+def _slope(act_slope, round_conv_first, dtype):
+    """The LeakyReLU slope as the kernel multiplies by it: in the compute
+    dtype where XLA's elementwise op does, else in f32."""
+    if act_slope is None:
+        return 0.0
+    return torch.tensor(act_slope, dtype=dtype if round_conv_first else torch.float32).item()
+
+
+# ctypes types of vxm_conv3_fwd's arguments
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
+    [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward):
     """Launch ``csrc/conv3.cu`` on the current stream; raises if the build or
-    the launch fails."""
+    the launch fails. x is channels-last in memory. A float32 ``forward``
+    runs on the CUDA cores in cuDNN's order (see ``_conv3``)."""
     if x.dtype not in _DTYPES or out_dtype != x.dtype:
         raise TypeError(f"the conv3 kernel takes float32 or bfloat16 and returns the "
                         f"input's dtype; got {x.dtype} -> {out_dtype}")
-    B, ci, D, H, W = x.shape
-    co = kernel.shape[-1]
-    cop = -(-co // _CO_BLK) * _CO_BLK
-    # weights (ci, 27, co) and bias, rounded to x's dtype, in f32, padded to
-    # whole blocks of output channels
-    w = kernel.to(x.dtype).float().permute(3, 0, 1, 2, 4).reshape(ci, 27, co)
-    w = F.pad(w, (0, cop - co)).contiguous()
-    b = F.pad(bias.to(x.dtype).float(), (0, cop - co)).contiguous()
-    x = x.contiguous()
-    y = torch.empty((B, co, D, H, W), dtype=out_dtype, device=x.device)
-    if act_slope is None:
-        slope = 0.0
-    elif round_conv_first:  # XLA multiplies by the slope in the compute dtype
-        slope = torch.tensor(act_slope, dtype=x.dtype).item()
-    else:
-        slope = torch.tensor(act_slope, dtype=torch.float32).item()
+    y, _operands, args = _kernel_args(x, kernel, bias, act_slope, round_conv_first,
+                                      f32_fma=forward and x.dtype == torch.float32)
     fn = _build.load("conv3").vxm_conv3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-        [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, ci, co, D, H, W,
-                 int(x.dtype == torch.bfloat16), int(act_slope is not None), slope,
-                 int(round_conv_first), cop, stream)
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vxm_conv3_fwd CUDA kernel failed to launch: CUDA error {err} "
-                           f"(B={B}, ci={ci}, co={co}, D={D}, H={H}, W={W}, {x.dtype})")
+                           f"(shape {tuple(x.shape)}, co={kernel.shape[-1]}, {x.dtype}, "
+                           f"tile {args[-6:]})")
     conv3_same_cf.launches += 1
     return y
 
 
-def _conv3(x, kernel, bias, act_slope, out_dtype, round_conv_first):
+def _channels_last(x):
+    """x as a channels_last_3d tensor: x itself where it is one, else one
+    copy, counted on ``conv3_same_cf.layout_copies``."""
+    if x.is_contiguous(memory_format=_CL):
+        return x
+    conv3_same_cf.layout_copies += 1
+    return x.contiguous(memory_format=_CL)
+
+
+def _conv3(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward=True):
+    """The convolution on x's device. On CUDA, bfloat16 runs on the tensor
+    cores, and so does the float32 input gradient (``forward`` False, by the
+    3xTF32 split); the float32 forward sums on the CUDA cores in the order
+    of cuDNN's float32 convolution, bit for bit: its outputs decide the
+    network's discrete branches (LeakyReLU sides, max-pool ties), which a
+    forward that rounds otherwise flips, and a train step in the conv-kernel
+    mode then departs from one in cuDNN mode by more than its order of sums."""
+    x = _channels_last(x)
     if x.device.type == "cpu":
         return conv3_same_cf_plain(x, kernel, bias, act_slope, out_dtype, round_conv_first)
     if x.device.type != "cuda":
         raise ValueError(f"conv3 runs on CUDA or CPU tensors, not {x.device}")
-    return _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first)
+    return _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward)
 
 
 def _flip_transpose_kernel(kernel: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, ci, co) -> taps flipped, ci <-> co: the kernel of the input
     gradient of a SAME convolution."""
     return kernel.flip(0, 1, 2).transpose(3, 4)
+
+
+def conv3_input_grad(gf: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The input gradient of ``conv3_same_cf`` for the cotangent ``gf`` of
+    its pre-activation output ``(B, co, D, H, W)``: the same convolution
+    with the taps flipped and ci and co swapped, no bias and no activation,
+    in gf's dtype. On CUDA tensors the kernel (float32 on the tensor cores
+    by the 3xTF32 split), counted on ``conv3_same_cf.launches``."""
+    return _conv3(gf, _flip_transpose_kernel(kernel.to(gf.dtype)), None, None, gf.dtype,
+                  False, forward=False)
 
 
 def _leaky_grad(g, y, act_slope):
@@ -259,34 +402,36 @@ def _shifted_dw_db(x: torch.Tensor, gf: torch.Tensor):
     spatial axes, in f32: ``dw[t] = sum_{b, v} x[b, :, v + t - 1] gf[b, :, v]^T``
     for each of the 3^N taps t, and ``db = sum_{b, v} gf[b, :, v]``.
 
-    x: ``(B, ci, *S)``, gf: ``(B, co, *S)``. Each tap is one matrix product
-    over a slice of the zero-padded input, flattened: x is padded by one
-    voxel on each side (and the first axis by one more at its end) and gf by
-    two zeros at the end of every axis but the first, so that in the
-    flattened layout a tap's shifted input is a contiguous slice at a fixed
-    offset, and the pad positions of gf cancel what the slice reads past a
-    row. Returns dw ``(3,) * N + (ci, co)`` and db ``(co,)``.
+    x: ``(B, ci, *S)``, gf: ``(B, co, *S)``, read channels-last: a
+    channels-last tensor's storage is read without a copy besides the
+    padding. Each tap is one matrix product over a slice of the zero-padded
+    input, flattened: x is padded by one voxel on each side (and the first
+    axis by one more at its end) to ``(B, S0 + 3, S1 + 2, ..., ci)`` and gf
+    by two zeros at the end of every axis but the first, so that in the
+    flattened ``(B, n, c)`` layout a tap's shifted input is a contiguous
+    slice of rows at a fixed offset, and the pad rows of gf cancel what the
+    slice reads past a row: ``dw[t] = xflat[:, off:off + n]^T @ gflat``.
+    Returns dw ``(3,) * N + (ci, co)`` and db ``(co,)``.
     """
     B, ci, *S = x.shape
     co = gf.shape[1]
     nd = len(S)
-    xpad, gpad = [], []
-    for axis in reversed(range(nd)):  # F.pad lists the last axis first
+    xpad, gpad = [0, 0], [0, 0]  # F.pad lists the last axis (channels) first
+    for axis in reversed(range(nd)):
         xpad += [1, 2] if axis == 0 else [1, 1]
         gpad += [0, 0] if axis == 0 else [0, 2]
-    xp = F.pad(x.float(), xpad).reshape(B, ci, -1)
-    gp = F.pad(gf.float(), gpad)
-    n = gp[0, 0].numel()
-    gflat = gp.reshape(B, co, n).transpose(1, 2)  # (B, n, co)
+    xflat = F.pad(x.float().movedim(1, -1), xpad).reshape(B, -1, ci)
+    gflat = F.pad(gf.float().movedim(1, -1), gpad).reshape(B, -1, co)
+    n = gflat.shape[1]
     strides = [1] * nd
     for axis in reversed(range(nd - 1)):
         strides[axis] = strides[axis + 1] * (S[axis + 1] + 2)
     taps = []
     for tap in itertools.product(range(3), repeat=nd):
         off = sum(t * s for t, s in zip(tap, strides))
-        taps.append(torch.matmul(xp[:, :, off:off + n], gflat).sum(0))  # (ci, co)
+        taps.append(torch.matmul(xflat[:, off:off + n].transpose(1, 2), gflat).sum(0))
     dw = torch.stack(taps, 0).reshape(*((3,) * nd), ci, co)
-    db = gf.float().sum(dim=(0, *range(2, nd + 2)))
+    db = gflat.sum(dim=(0, 1))
     return dw, db
 
 
@@ -306,11 +451,10 @@ class _Conv3Block(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, kernel, y = ctx.saved_tensors
-        gf = _leaky_grad(g, y, ctx.act_slope).contiguous()
+        gf = _leaky_grad(g, y, ctx.act_slope)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _conv3(gf, _flip_transpose_kernel(kernel), gf.new_zeros(x.shape[1]), None,
-                        x.dtype, False)
+            dx = conv3_input_grad(gf, kernel)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = _shifted_dw_db(x, gf)
             dw, db = dw.to(kernel.dtype), db.to(x.dtype)
@@ -333,10 +477,13 @@ def conv3_same_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
 
     x: ``(B, ci, D, H, W)``; kernel: ``(3, 3, 3, ci, co)``; bias: ``(co,)``;
     kernel and bias are rounded to x's dtype. Returns ``(B, co, D, H, W)``,
-    differentiable in all three. On CUDA tensors the forward and the input
+    differentiable in all three. Computes channels-last: the output is a
+    ``torch.channels_last_3d`` tensor, and an x (or a cotangent) in another
+    layout is copied once. On CUDA tensors the forward and the input
     gradient launch the CUDA kernel, for every shape, and raise if the build
     or a launch fails; on CPU tensors they run ``conv3_same_cf_plain``.
-    ``conv3_same_cf.launches`` counts kernel launches.
+    ``conv3_same_cf.launches`` counts kernel launches and
+    ``conv3_same_cf.layout_copies`` the layout copies.
     """
     _check(x, kernel, bias)
     out = _Conv3Block.apply(x, kernel.to(x.dtype), bias.to(x.dtype), act_slope,
@@ -345,12 +492,15 @@ def conv3_same_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
 
 
 conv3_same_cf.launches = 0
+conv3_same_cf.layout_copies = 0
 
 
 def conv3_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
                act_slope: Optional[float] = 0.2, out_dtype=None,
                round_conv_first: bool = False) -> torch.Tensor:
-    """Channels-last ``conv3_same_cf``: x ``(B, D, H, W, ci)`` -> ``(B, D, H, W, co)``."""
+    """Channels-last ``conv3_same_cf``: x ``(B, D, H, W, ci)`` -> ``(B, D, H, W, co)``,
+    views of the channels-last tensors ``conv3_same_cf`` takes and returns
+    (no copy for a contiguous x)."""
     out = conv3_same_cf(x.movedim(-1, 1), kernel, bias, act_slope=act_slope,
                         out_dtype=out_dtype, round_conv_first=round_conv_first)
     return out.movedim(1, -1)
