@@ -5,6 +5,9 @@ Run from the root of the repository:
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --profile  # also print a profiler breakdown of one call
+    python3 chip_smoke.py --compare-warp-source OLD/warp_bounded.cu
+        # also time another build of the warp kernels (an earlier commit's
+        # csrc/warp_bounded.cu) on phases 2 and 2b's inputs
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
@@ -13,10 +16,14 @@ Phases:
      machine code (cuobjdump), which must not be none;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it and at stress shapes, with times
-     beside the bound, the plain version and one PyTorch library call;
+     beside the bound (and bound_share, the bound over the time), the plain
+     version, one PyTorch library call and, for the warp, one elementwise op
+     that moves the same bytes; a kernel and the calls it is compared with
+     are timed in turns;
   2b. the bounded-warp backward kernel against its plain version at phase
      2's shapes, bit-equal across two launches, with times beside the bound,
-     the plain version and the backward of grid_sample;
+     the plain version and the backward of grid_sample, on the phase's
+     random shifts and on a smooth field of the same bound;
   2c. gradients through warp_bounded and integrate_vec_batched on CUDA
      tensors (the backward kernel) against the same on the CPU;
   2d. the conv kernel against its plain version at the full-width U-Net's
@@ -56,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -74,6 +82,7 @@ from voxelmorph_tpu_torch.models.unet import ConvBlock
 from voxelmorph_tpu_torch.models.vxm import VxmDense
 from voxelmorph_tpu_torch.ops import conv3
 from voxelmorph_tpu_torch.ops import warp as warp_ops
+from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
 from voxelmorph_tpu_torch.ops.interp import ndgrid, resize
 from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bwd,
                                                    warp_bounded_bwd_plain, windowed_transform)
@@ -234,15 +243,54 @@ def phase(name):
     return time.perf_counter()
 
 
+def warm_device(seconds=0.5):
+    """Keep the card busy for a while, so that the timings that follow do
+    not start while its clocks are still rising from idle (the build leaves
+    it idle for tens of seconds)."""
+    a = torch.randn(4096, 4096, device="cuda")
+    t = time.perf_counter()
+    while time.perf_counter() - t < seconds:
+        for _ in range(10):
+            a = (a @ a).clamp_(-1.0, 1.0)
+        torch.cuda.synchronize()
+
+
 def time_cuda_ms(fn, reps=20, warmup=3):
     """Median device time of ``fn`` in ms over ``reps`` runs, each with a
-    cold L2 (a 256 MB buffer is written before each run)."""
+    cold L2 (see sample_cuda_ms)."""
+    return float(np.median(sample_cuda_ms(fn, reps, warmup)))
+
+
+def time_in_turns(fns, rounds=2, reps=10, warmup=3):
+    """Median device time in ms of each of ``fns`` (a dict), timed in turns:
+    ``rounds`` rounds, each timing every function ``reps`` times in order,
+    so that a drift of the card's state does not favour one of them."""
+    samples = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            samples[name] += sample_cuda_ms(fn, reps, warmup)
+    return {name: float(np.median(t)) for name, t in samples.items()}
+
+
+# Cycles the card spins before each timed run, about 1 ms: longer than the
+# host takes to launch the run, so that the time from the start event to
+# the end event is the device's alone.
+SPIN_CYCLES = 2_000_000
+
+
+def sample_cuda_ms(fn, reps, warmup):
+    """Device times of ``reps`` runs of ``fn`` in ms, each with a cold L2 (a
+    256 MB buffer is written before each run) and timed from a start event
+    that the card reaches only after spinning SPIN_CYCLES: without that, a
+    short kernel whose launch takes the host longer than the flush takes
+    the card is timed with the card idle, waiting for it."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -250,7 +298,7 @@ def time_cuda_ms(fn, reps=20, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
 
 
 def warp_case(rng, batch, spatial, nch, halo):
@@ -270,14 +318,75 @@ def warp_case(rng, batch, spatial, nch, halo):
     return (torch.from_numpy(vol).cuda(), torch.from_numpy(shift).cuda())
 
 
+def build_compare_libraries(sources):
+    """Build each other copy of csrc/warp_bounded.cu (an earlier commit's,
+    unpacked outside the package) with the package's nvcc flags, all at
+    once, into the build directory. Returns {label: ctypes library}."""
+    out = _build.library_path("warp_bounded").parent / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, src in enumerate(sources):
+        label = f"{i}:{src}"
+        lib = out / f"libwarp_bounded_{i}.so"
+        procs[label] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (lib, proc) in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}:\n{text}")
+        for line in text.splitlines():
+            if any(key in line for key in ("registers", "smem", "spill", "Compiling entry")):
+                log(f"  {label}: {line.strip()}")
+        libs[label] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def compare_launch(lib, name, tensors, halo):
+    """Launch the entry point ``name`` of another build on the current
+    stream, as ops/warp_bounded.py launches the package's own."""
+    fn = getattr(lib, name)
+    fn.argtypes = warp_bounded_ops._ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    B, D, H, W, C = tensors[0].shape
+    err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, halo,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} of another build failed to launch: CUDA error {err}")
+
+
+def compare_rows(libs, name, inputs, outputs, plain, halo):
+    """Each other build's error against the plain version, and a function
+    that launches it, by label."""
+    errs, fns = {}, {}
+    for label, lib in libs.items():
+        compare_launch(lib, name, inputs + outputs, halo)
+        torch.cuda.synchronize()
+        errs[label] = max((o - p).abs().max().item() for o, p in zip(outputs, plain))
+        fns[label] = lambda lib=lib: compare_launch(lib, name, inputs + outputs, halo)
+    return errs, fns
+
+
+def timed_row(row, fns, compare):
+    """Time the kernel, the library call and the other builds in turns, and
+    put their times into ``row`` (the other builds' under "compare")."""
+    errs, other = compare
+    times = time_in_turns({**fns, **{f"compare {k}": f for k, f in other.items()}})
+    row.update({k: times[k] for k in fns})
+    if errs:
+        row["compare"] = {k: dict(max_abs_err=errs[k], ms=times[f"compare {k}"]) for k in errs}
+
+
 def grid_sample_warp(vol_cf, grid):
     """The library comparator: trilinear grid_sample with border clamping."""
     return F.grid_sample(vol_cf, grid, mode="bilinear", padding_mode="border",
                          align_corners=True)
 
 
-def check_warp_bounded(rng):
-    """Kernel vs plain version at the serving shape and stress shapes."""
+def check_warp_bounded(rng, compare_libs):
+    """Kernel vs plain version at the serving shape and stress shapes, and
+    the other builds of ``compare_libs`` beside it."""
     rows = []
     for batch, spatial, nch, halo in WARP_CASES:
         vol, shift = warp_case(rng, batch, spatial, nch, halo)
@@ -298,14 +407,23 @@ def check_warp_bounded(rng):
         nbytes = (2 * nch + 3) * 4 * vox
         ops = (46 + 16 * nch) * vox
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        # the floor of this timing for the kernel's bytes: one elementwise
+        # op that reads vol and shift (every sector of it) and writes a
+        # tensor of vol's size
+        same = shift[..., :nch] if nch <= 3 else None
         row = dict(
             shape=[batch, *spatial, nch], halo=halo, max_abs_err=err,
             grid_sample_err=lib_err,
-            ms=time_cuda_ms(lambda: warp_bounded(vol, shift, halo)),
             plain_ms=time_cuda_ms(lambda: windowed_transform(vol, shift, halo)),
-            library_ms=time_cuda_ms(lambda: grid_sample_warp(vol_cf, grid)),
-            bound_ms=bound_ms,
+            bound_ms=bound_ms, same_bytes_ms=None,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S else "operations")
+        fns = dict(ms=lambda: warp_bounded(vol, shift, halo),
+                   library_ms=lambda: grid_sample_warp(vol_cf, grid))
+        if same is not None:
+            fns["same_bytes_ms"] = lambda: vol + same
+        timed_row(row, fns, compare_rows(compare_libs, "vxm_warp_bounded_fwd", [vol, shift],
+                                         [torch.empty_like(vol)], [plain], halo))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         log(json.dumps(row))
         if not err <= KERNEL_TOL:
             raise AssertionError(f"warp_bounded kernel differs from its plain version "
@@ -578,9 +696,10 @@ def bwd_bound(vox, nch):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_warp_bounded_bwd(rng):
+def check_warp_bounded_bwd(rng, compare_libs):
     """Backward kernel vs plain version at phase 2's shapes: within
-    KERNEL_TOL, and bit-equal across two launches (no atomics)."""
+    KERNEL_TOL, and bit-equal across two launches (no atomics); the other
+    builds of ``compare_libs`` beside it."""
     rows = []
     for batch, spatial, nch, halo in WARP_CASES:
         vol, shift = warp_case(rng, batch, spatial, nch, halo)
@@ -607,13 +726,29 @@ def check_warp_bounded_bwd(rng):
         row = dict(
             shape=[batch, *spatial, nch], halo=halo, max_abs_err=err, max_abs_grad=scale,
             repeatable=repeatable,
-            ms=time_cuda_ms(lambda: warp_bounded_bwd(vol, shift, g, halo)),
             # the plain version is slow at the large halos: fewer runs
             plain_ms=time_cuda_ms(lambda: warp_bounded_bwd_plain(vol, shift, g, halo),
                                   reps=5, warmup=1),
-            library_ms=time_cuda_ms(lambda: torch.autograd.grad(
-                out_cf, (vol_cf, grid), g_cf, retain_graph=True)),
             bound_ms=bound_ms, bound_by=bound_by)
+        timed_row(row, dict(
+            ms=lambda: warp_bounded_bwd(vol, shift, g, halo),
+            library_ms=lambda: torch.autograd.grad(out_cf, (vol_cf, grid), g_cf,
+                                                   retain_graph=True)),
+            compare_rows(compare_libs, "vxm_warp_bounded_bwd", [vol, shift, g],
+                         [torch.empty_like(vol), torch.empty_like(shift)], [pvol, pshift], halo))
+        row["bound_share"] = bound_ms / row["ms"]
+        # the same on a smooth shift of the same bound, as a velocity field
+        # gives: the lanes of a warp then share the sources that reach them
+        sshift = torch.stack([smooth_field(rng, spatial, (5, 6, 7), halo / 2, "cuda")
+                              for _ in range(batch)]).clamp_(-halo, halo)
+        sgrid = (2.0 * (ndgrid(spatial, device="cuda") + sshift) / dims - 1.0).flip(-1)
+        sgrid = sgrid.contiguous().requires_grad_()
+        sout_cf = grid_sample_warp(vol_cf, sgrid)
+        smooth = time_in_turns(dict(
+            ms=lambda: warp_bounded_bwd(vol, sshift, g, halo),
+            library_ms=lambda: torch.autograd.grad(sout_cf, (vol_cf, sgrid), g_cf,
+                                                   retain_graph=True)))
+        row["smooth_ms"], row["smooth_library_ms"] = smooth["ms"], smooth["library_ms"]
         log(json.dumps(row))
         if not err <= KERNEL_TOL:
             raise AssertionError(f"warp_bounded_bwd kernel differs from its plain version "
@@ -624,6 +759,7 @@ def check_warp_bounded_bwd(rng):
             raise AssertionError(f"gradients of {scale} cannot show a {KERNEL_TOL} error")
         rows.append(row)
         del vol, shift, g, dvol, dshift, dvol2, dshift2, pvol, pshift, out_cf, grid, vol_cf
+        del sshift, sgrid, sout_cf
     return rows
 
 
@@ -1034,6 +1170,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="print profiler breakdowns of a register call and a train "
                              "step, with and without the conv kernel")
+    parser.add_argument("--compare-warp-source", nargs="+", default=[], metavar="CU",
+                        help="other copies of csrc/warp_bounded.cu to build and time "
+                             "beside the package's warp kernels in phases 2 and 2b")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1057,8 +1196,9 @@ def main(argv=None) -> int:
     log(f"built {sorted(build_logs)} in {time.perf_counter() - t_build:.2f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(key in line for key in ("registers", "smem", "spill", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
+    compare_libs = build_compare_libraries(args.compare_warp_source)
     hmma = tensor_core_instructions("conv3")
     log(f"conv3: {hmma} tensor-core instructions (HMMA) in libconv3.so")
     if hmma == 0:
@@ -1066,11 +1206,12 @@ def main(argv=None) -> int:
     log(f"phase 1: {time.perf_counter() - t:.2f} s")
 
     t = phase("2. warp_bounded kernel vs plain version")
-    rows = check_warp_bounded(np.random.default_rng(SEED))
+    warm_device()
+    rows = check_warp_bounded(np.random.default_rng(SEED), compare_libs)
     log(f"phase 2: {time.perf_counter() - t:.2f} s")
 
     t = phase("2b. warp_bounded backward kernel vs plain version")
-    bwd_rows = check_warp_bounded_bwd(np.random.default_rng(SEED + 1))
+    bwd_rows = check_warp_bounded_bwd(np.random.default_rng(SEED + 1), compare_libs)
     log(f"phase 2b: {time.perf_counter() - t:.2f} s")
 
     t = phase("2c. gradients through the bounded warp: GPU vs CPU")
@@ -1126,7 +1267,8 @@ def main(argv=None) -> int:
         launches_by_path={path: n["fwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=serving["ms"], plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
-        bound_by=serving["bound_by"], library_ms=serving["library_ms"]), dict(
+        bound_by=serving["bound_by"], bound_share=serving["bound_share"],
+        library_ms=serving["library_ms"]), dict(
         name="warp_bounded_bwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:952",
@@ -1135,7 +1277,7 @@ def main(argv=None) -> int:
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=serving_bwd["ms"], plain_ms=serving_bwd["plain_ms"],
         bound_ms=serving_bwd["bound_ms"], bound_by=serving_bwd["bound_by"],
-        library_ms=serving_bwd["library_ms"]), dict(
+        bound_share=serving_bwd["bound_share"], library_ms=serving_bwd["library_ms"]), dict(
         # times: the 11 forward convs of a bfloat16 register call, summed;
         # train_step_conv: the 11 forward and 10 input-gradient convs of a
         # float32 train step

@@ -1,17 +1,22 @@
 // Stand-in for <cuda_runtime.h> that runs a CUDA C++ kernel on the CPU, for
 // tests on machines without a GPU or nvcc. The blocks run in turn, on one
-// std::thread per CUDA thread, with a std::barrier for __syncthreads(). The
+// std::thread per CUDA thread, with a std::barrier for __syncthreads(), and
+// each finds its shared memory filled with NaN. The
 // `<<<grid, block, smem, stream>>>` launch and `extern __shared__` arrays
 // are rewritten by the test (tests/test_torch_kernel_emulation.py) into
 // emu_launch(...) and a pointer to emu_shared_memory.
 // <cuda_pipeline_primitives.h> beside it stands in for the asynchronous
 // copies, and tensor_core.cuh for csrc/tensor_core.cuh.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <thread>
 #include <vector>
 
+struct float2 {
+  float x, y;
+};
 struct float4 {
   float x, y, z, w;
 };
@@ -30,8 +35,16 @@ alignas(128) static float emu_shared_memory[232448 / sizeof(float)];
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+// one device of 132 SMs that holds one block of any kernel on each
+static cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
+static cudaError_t cudaDeviceGetAttribute(int* value, int, int) { *value = 132; return cudaSuccess; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 static cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 #define __global__
@@ -44,6 +57,9 @@ static cudaError_t cudaGetLastError() { return cudaSuccess; }
 // rounded apart: no fused multiply-add, as the intrinsics promise
 static float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+// 1 + the index of the lowest set bit, 0 for 0
+static int __ffs(int x) { return __builtin_ffs(x); }
+static int __ffsll(long long x) { return __builtin_ffsll(x); }
 
 template <class K, class... A>
 void emu_launch(dim3 grid, dim3 block, K kernel, A... args) {
@@ -62,7 +78,12 @@ void emu_launch(dim3 grid, dim3 block, K kernel, A... args) {
       for (unsigned bz = 0; bz < grid.z; ++bz)
         for (unsigned by = 0; by < grid.y; ++by)
           for (unsigned bx = 0; bx < grid.x; ++bx) {
-            if (t == 0) inner = emu_barrier = new std::barrier<>(n);
+            if (t == 0) {
+              inner = emu_barrier = new std::barrier<>(n);
+              // shared memory starts undefined on the card: NaN here, so
+              // that a kernel that reads what it never wrote shows it
+              std::fill(std::begin(emu_shared_memory), std::end(emu_shared_memory), NAN);
+            }
             between.arrive_and_wait();  // the block's barrier exists
             blockIdx = dim3(bx, by, bz);
             kernel(args...);

@@ -78,3 +78,22 @@ def test_build_rebuilds_after_a_shared_header_changes(tmp_path, monkeypatch):
     os.utime(lib, (newest + 1, newest + 1))
     os.utime(headers / "shared.cuh", (newest + 2, newest + 2))
     assert sorted(_build.build(["conv3"])) == ["conv3"]
+
+
+def test_entry_point_is_looked_up_once(monkeypatch):
+    """A kernel's C function comes back with its argument types set, and the
+    same object on every later call (no lookup per launch)."""
+    import ctypes
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return ctypes.CDLL(None)  # the process's own symbols
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_ENTRY_POINTS", {})
+    fn = _build.entry_point("libc", "abs", [ctypes.c_int])
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert fn(-7) == 7
+    assert _build.entry_point("libc", "abs", [ctypes.c_int]) is fn
+    assert loads == ["libc"]

@@ -31,13 +31,25 @@ import torch
 from torch_parity import bounded_case
 from voxelmorph_tpu_torch import _build
 from voxelmorph_tpu_torch.ops import conv3
+from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
 from voxelmorph_tpu_torch.ops.warp_bounded import warp_bounded_bwd_plain, windowed_transform
 
 SHIM = Path(__file__).resolve().parent / "cuda_emulation"
-# (batch, spatial, channels, halo): several blocks along x, y and z, with
-# partial tiles at the far edges
+# (batch, spatial, channels, halo): several blocks along x and y, with
+# partial tiles at the far edges. At these sizes the kernels march along z
+# in runs of the fewest planes they take (4 for the forward at halo 1 and
+# for the backward, 8 for the forward at larger halos): D shorter than one
+# run (7, 6, 3 planes, the last fewer than the halo), and D of several runs
+# with a ragged last one (20 = 8 + 8 + 4, 19 = 4 * 4 + 3, 17, 18, 9, 5, 6).
+# W is not a multiple of 4 voxels in most cases, so that rows of W * C
+# floats differ in alignment (C = 1, 3: part 16-byte and part 4-byte
+# copies, C = 2 with W even and C = 4: 16-byte copies), at every C and halo
+# in [1, 4].
 CASES = [(1, (5, 9, 40), 1, 1), (2, (6, 10, 35), 3, 1), (1, (7, 9, 33), 2, 2),
-         (1, (6, 8, 34), 4, 3), (1, (9, 17, 20), 3, 4)]
+         (1, (6, 8, 34), 4, 3), (1, (9, 17, 20), 3, 4),
+         (1, (20, 9, 37), 1, 2), (1, (19, 10, 34), 2, 1), (2, (17, 7, 35), 3, 3),
+         (1, (18, 9, 33), 4, 4), (1, (19, 11, 38), 3, 2), (1, (3, 9, 35), 2, 4),
+         (1, (17, 6, 33), 1, 3)]
 
 
 def _compile(tmp_path_factory, name, shared, launches):
@@ -82,7 +94,7 @@ def conv_kernel(tmp_path_factory):
 
 def _call(lib, name, *args):
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * (len(args) - 7) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = warp_bounded_ops._ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn(*args)
 
@@ -117,14 +129,41 @@ def test_backward_kernel_equals_plain(kernels, batch, spatial, nch, halo):
     assert torch.equal(dshift, ref_shift)
 
 
-@pytest.mark.parametrize("nch,halo", [(5, 1), (4, 8), (0, 1)])
+@pytest.mark.parametrize("nch,halo", [(5, 1), (4, 8), (0, 1), (1, 5), (1, 0)])
 def test_entry_points_refuse_what_they_cannot_run(kernels, nch, halo):
-    """Too many channels, or a halo whose tile overflows shared memory."""
+    """Channels or a halo outside [1, 4], the wrapper's range: refused by
+    the entry points' own check, whatever shared memory a tile would take."""
     buf = torch.zeros(4096)
     p = buf.data_ptr()
     assert _call(kernels, "vxm_warp_bounded_fwd", p, p, p, 1, 4, 4, 4, nch, halo, None) != 0
     assert _call(kernels, "vxm_warp_bounded_bwd", p, p, p, p, p, 1, 4, 4, 4, nch, halo,
                  None) != 0
+
+
+@pytest.mark.parametrize("nch,halo", [(2, 1), (4, 2), (3, 1)])
+def test_kernels_take_tensors_at_any_float_offset(kernels, nch, halo):
+    """Inputs and outputs one float past a 16-byte boundary (views into a
+    larger buffer): the row copies fall back to 4 bytes and the results
+    stay bit-equal to the plain versions."""
+    vol, shift, g = _case(1, (10, 9, 36), nch, halo)
+
+    def shifted(t):
+        buf = torch.full((t.numel() + 1,), float("nan"))
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    vol, shift, g = shifted(vol), shifted(shift), shifted(g)
+    out, dvol, dshift = shifted(torch.zeros_like(vol)), shifted(vol * 0), shifted(shift * 0)
+    assert _call(kernels, "vxm_warp_bounded_fwd", vol.data_ptr(), shift.data_ptr(),
+                 out.data_ptr(), 1, 10, 9, 36, nch, halo, None) == 0
+    assert torch.equal(out, windowed_transform(vol, shift, halo))
+    assert _call(kernels, "vxm_warp_bounded_bwd", vol.data_ptr(), shift.data_ptr(),
+                 g.data_ptr(), dvol.data_ptr(), dshift.data_ptr(), 1, 10, 9, 36, nch,
+                 halo, None) == 0
+    ref_vol, ref_shift = warp_bounded_bwd_plain(vol, shift, g, halo)
+    assert torch.equal(dvol, ref_vol) and torch.equal(dshift, ref_shift)
 
 
 # (batch, ci, co, D, H, W, layout, tile, fma_tile): ragged tiles along x, y

@@ -16,9 +16,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build", "library_path", "load", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "entry_point", "library_path", "load",
+           "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"warp_bounded": _SRC / "warp_bounded.cu", "conv3": _SRC / "conv3.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_ENTRY_POINTS: Dict[Tuple[str, str], Any] = {}
 
 
 def nvcc_path() -> str:
@@ -103,3 +105,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def entry_point(name: str, symbol: str, argtypes: List[Any]):
+    """The C function ``symbol`` of the kernel library ``name``, built and
+    loaded at first use, with ``argtypes`` set and an int result. Looked up
+    once: a launch calls the cached function."""
+    fn = _ENTRY_POINTS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRY_POINTS[(name, symbol)] = fn
+    return fn

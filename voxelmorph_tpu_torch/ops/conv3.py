@@ -335,9 +335,7 @@ def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward
                         f"input's dtype; got {x.dtype} -> {out_dtype}")
     y, _operands, args = _kernel_args(x, kernel, bias, act_slope, round_conv_first,
                                       f32_fma=forward and x.dtype == torch.float32)
-    fn = _build.load("conv3").vxm_conv3_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _build.entry_point("conv3", "vxm_conv3_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -155,14 +155,18 @@ def warp_bounded_bwd_plain(vol: torch.Tensor, loc_shift: torch.Tensor, g: torch.
     return dvol, dshift
 
 
+# ctypes types of the entry points' arguments: the tensors, B, D, H, W, C,
+# the halo and the stream
+_ARGTYPES = {name: [ctypes.c_void_p] * n + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+             for name, n in (("vxm_warp_bounded_fwd", 3), ("vxm_warp_bounded_bwd", 5))}
+
+
 def _launch(name: str, tensors, halo: int) -> None:
     """Launch the kernel entry point ``name`` of ``csrc/warp_bounded.cu`` on
     the current stream: ``tensors`` are its float32 inputs then outputs, the
     first shaped (B, D, H, W, C). Raises if the launch fails."""
     B, D, H, W, C = tensors[0].shape
-    fn = getattr(_build.load("warp_bounded"), name)
-    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry_point("warp_bounded", name, _ARGTYPES[name])
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
