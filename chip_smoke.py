@@ -53,7 +53,24 @@ Phases:
      the committed checkpoint's own recipe (use_probs, NCC, KL, bfloat16);
   4b. training with the conv kernel: one step's loss and gradients against
      cuDNN mode, then three steps that lower the loss, 21 conv launches per
-     step (11 forward, 10 input gradients) and no layout copy.
+     step (11 forward, 10 input gradients) and no layout copy;
+  5. semi-supervised segmentation training at full width: the recipe of
+     scripts/train_semisupervised_seg.py (MSE + Grad-l2 + Dice, Adam 1e-4,
+     float32) on VxmDenseSemiSupervisedSeg from seed 0, with a synthetic
+     30-label map (a Voronoi partition of the head mask) one-hot at half
+     resolution as generators.semisupervised gives it: one step's loss and
+     gradients on the card against the port's CPU run at 80x96x112; the
+     segmentation warp (30 channels: the gather) launching no kernel; three
+     steps in cuDNN mode and three with the conv kernel (flow head redrawn,
+     as in 4b) that lower the loss, the first launching what phases 4 and
+     4b's VxmDense step from the same weights launches, seconds per step and
+     peak memory;
+     then the warp of a 40-label one-hot at 80x96x112 (the wide-channel
+     gather), value and flow gradient, against the CPU;
+  5b. the warp ops on the card against the port's CPU run: transform with
+     affine matrices, compose, integrate_vec (ss, quadrature, ode),
+     jacobian_determinant, and cli/warp at full width with a dense warp and
+     with an affine.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -68,6 +85,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -76,16 +94,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from voxelmorph_tpu_torch import _build, losses
+from voxelmorph_tpu_torch import _build, generators, losses
+from voxelmorph_tpu_torch.cli import warp as warp_cli
 from voxelmorph_tpu_torch.models.modelio import load_model
 from voxelmorph_tpu_torch.models.unet import ConvBlock
-from voxelmorph_tpu_torch.models.vxm import VxmDense
-from voxelmorph_tpu_torch.ops import conv3
+from voxelmorph_tpu_torch.models.vxm import VxmDense, VxmDenseSemiSupervisedSeg
+from voxelmorph_tpu_torch.ops import conv3, interp
 from voxelmorph_tpu_torch.ops import warp as warp_ops
 from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
 from voxelmorph_tpu_torch.ops.interp import ndgrid, resize
 from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bwd,
                                                    warp_bounded_bwd_plain, windowed_transform)
+from voxelmorph_tpu_torch.py.utils import load_volfile
 from voxelmorph_tpu_torch.registration import (build_register_fn, enable_fast_warp,
                                                resolve_registration_model)
 from voxelmorph_tpu_torch.training import LossTerm, Trainer
@@ -166,6 +186,16 @@ TRAIN_GPU_VS_CPU_RTOL = 2e-3
 # order of sums and in the weight gradient (shifted matrix products against
 # cuDNN's)
 TRAIN_CONV_KERNEL_VS_CUDNN_RTOL = 1e-4
+
+# the semi-supervised recipe's labels: a 30-label map, as the repository's
+# semi-supervised quality run used; the wide-channel check takes 40, the
+# fewest whose one-hot corner table at 80x96x112 passes the gather's limit
+SEMI_LABELS = 30
+WIDE_LABELS = 40
+# the warp ops, card against CPU, relative to the largest magnitude: the
+# same float32 operations, whose sums (matrix products, the channel sum of
+# the wide gather's coordinate gradient) run in other orders
+WARP_OPS_RTOL = 1e-5
 
 # the least share of bf16 conv outputs the kernel and its plain version agree
 # on bit for bit in the same rounding order
@@ -437,6 +467,12 @@ def smooth_pair(spatial, device):
     """A smooth synthetic pair: low-frequency noise upsampled to ``spatial``
     and scaled to [0, 1], and the same image warped by a smooth random
     displacement of a few voxels."""
+    img, fixed, _ = smooth_pair_and_disp(spatial, device)
+    return img, fixed
+
+
+def smooth_pair_and_disp(spatial, device):
+    """``smooth_pair`` and the displacement that warps one into the other."""
     rng = np.random.default_rng(SEED)
     coarse = torch.from_numpy(
         rng.standard_normal((10, 12, 14, 1), dtype=np.float32)).to(device)
@@ -446,7 +482,40 @@ def smooth_pair(spatial, device):
         3.0 * rng.standard_normal((5, 6, 7, 3), dtype=np.float32)).to(device)
     disp = resize(disp, [s / c for s, c in zip(spatial, (5, 6, 7))], new_shape=spatial)
     fixed = warp_ops.transform(img, disp, window_halo=None)
-    return img[None], fixed[None]
+    return img[None], fixed[None], disp
+
+
+def voronoi_labels(img, nb_labels, seed):
+    """A label map of ``img`` ``(*S, 1)``: the head mask (intensity above
+    0.3) split among ``nb_labels`` seeded centres inside it (each voxel
+    takes its nearest centre's label, 1 to nb_labels), 0 outside.
+    Returns int32 ``(*S,)`` on img's device."""
+    spatial = img.shape[:-1]
+    mask = img[..., 0] > 0.3
+    flat = np.flatnonzero(mask.cpu().numpy())
+    picks = np.random.default_rng(seed).choice(flat, nb_labels, replace=False)
+    centres = torch.from_numpy(np.stack(np.unravel_index(picks, spatial), -1)).to(
+        img.device, torch.float32)
+    grid = ndgrid(spatial, device=img.device).reshape(-1, 3)
+    nearest = torch.cdist(grid, centres, compute_mode="donot_use_mm_for_euclid_dist")
+    nearest = nearest.argmin(dim=-1).reshape(spatial)
+    return torch.where(mask, nearest + 1, 0).to(torch.int32)
+
+
+def semi_batch(spatial, device):
+    """The semi-supervised generator's batch on smooth_pair: (src, trg,
+    src_seg), (trg, zero flow, trg_seg), the segs one-hot over SEMI_LABELS
+    labels at half resolution (generators._one_hot_seg, downsize 2), the
+    fixed scan's labels carried by the pair's displacement (nearest)."""
+    moving, fixed, disp = smooth_pair_and_disp(spatial, device)
+    src = voronoi_labels(moving[0], SEMI_LABELS, SEED + 5)
+    trg = warp_ops.transform(src.float(), disp, interp_method="nearest",
+                             window_halo=None).round().to(torch.int32)
+    labels = np.arange(1, SEMI_LABELS + 1)
+    segs = [torch.from_numpy(np.ascontiguousarray(generators._one_hot_seg(
+        s.cpu().numpy()[None, ..., None], labels, downsize=2))).to(device) for s in (src, trg)]
+    zero = torch.zeros((1, *spatial, 3), device=device)
+    return (moving, fixed, segs[0]), (fixed, zero, segs[1])
 
 
 def max_and_mean_abs(a, b):
@@ -1005,6 +1074,8 @@ def train_full_width(profile):
                       loss_g, grads_g, rtol)
         if flow_std is None:
             train_launches = launches
+        else:
+            redrawn_launches = launches
         del grads_k, grads_g
 
     # (b) the card against the port's CPU run, at half width; the CPU takes
@@ -1051,7 +1122,7 @@ def train_full_width(profile):
         profile_device("train step", lambda: trainer.train_step(
             (moving, fixed), (fixed, zero))["loss"].item(), rows=30)
         conv_library_times(trainer.model)
-    return train_launches
+    return train_launches, redrawn_launches
 
 
 def train_checkpoint_recipe():
@@ -1098,6 +1169,7 @@ def train_conv_kernel(moving, fixed, profile):
     compare_grads(f"conv kernel vs cuDNN, flow head N(0, {FLOW_STD}), {INSHAPE}",
                   runs[True][0], runs[True][1], runs[False][0], runs[False][1],
                   TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
+    one_step_launches = runs[True][2]
     del runs
 
     with conv_kernel_mode(True):
@@ -1126,7 +1198,250 @@ def train_conv_kernel(moving, fixed, profile):
         if profile:
             profile_device("train step, conv kernel", lambda: trainer.train_step(
                 (moving, fixed), (fixed, zero))["loss"].item(), rows=30)
-    return per_step[-1]
+    return per_step[-1], one_step_launches
+
+
+def semi_recipe(inshape, flow_std=None):
+    """scripts/train_semisupervised_seg.py's default: MSE + Grad('l2',
+    loss_mult=2) at weight 0.01 + Dice at weight 0.01, on a float32
+    VxmDenseSemiSupervisedSeg of SEMI_LABELS labels with default features,
+    initialised from seed 0 (its VxmDense draws as default_recipe's);
+    ``flow_std`` redraws the flow head as default_recipe does."""
+    model = VxmDenseSemiSupervisedSeg(inshape, nb_labels=SEMI_LABELS, int_steps=7,
+                                      int_resolution=2,
+                                      generator=torch.Generator().manual_seed(SEED))
+    if flow_std is not None:
+        with torch.no_grad():
+            model.vxm.flow.weight.normal_(0.0, flow_std,
+                                          generator=torch.Generator().manual_seed(SEED + 1))
+    terms = [LossTerm("y_source", losses.MSE().loss, weight=1.0, target_index=0),
+             LossTerm("reg", losses.Grad("l2", loss_mult=2).loss, weight=0.01,
+                      target_index=1, name="grad"),
+             LossTerm("y_seg_source", losses.Dice().loss, weight=0.01, target_index=2,
+                      name="dice")]
+    return model, terms
+
+
+def semi_step_grads(inshape, device, batch, flow_std=None):
+    """Loss and parameter gradients of one semi-supervised train step (no
+    update), with the kernel launch counts of the step."""
+    model, terms = semi_recipe(inshape, flow_std)
+    trainer = Trainer(model, terms, device=device)
+    trainer.model.train()
+    inputs, targets = (tuple(a.to(device) for a in part) for part in batch)
+    reset_launches()
+    loss, _ = trainer.loss_fn(inputs, targets)
+    loss.backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    grads = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}
+    return loss.item(), grads, read_launches()
+
+
+def find_node(tensor, name):
+    """Whether the autograd graph of ``tensor`` holds a node called ``name``."""
+    seen, todo = set(), [tensor.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == name:
+            return True
+        todo.extend(f for f, _ in node.next_functions)
+    return False
+
+
+def train_semisupervised(one_step_launches, smi):
+    """Phase 5: the semi-supervised recipe at full width on the card.
+    ``one_step_launches`` maps conv-kernel mode (False, True) to the
+    launches of one VxmDense step of phases 4 and 4b from the same weights
+    (seed 0, flow head redrawn N(0, FLOW_STD)) on the same pair. Returns the
+    launch counts of a step in cuDNN mode and in conv-kernel mode."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # (a) the card against the port's CPU run at half width, flows of about
+    # a voxel; the CPU takes the bounded tiers too (VXM_WINDOW_HALO=1)
+    half = tuple(s // 2 for s in INSHAPE)
+    batch_h = semi_batch(half, "cpu")
+    t0 = time.perf_counter()
+    loss_c, grads_c, _ = semi_step_grads(half, "cuda", batch_h, FLOW_STD)
+    with window_halo("1"):
+        loss_cpu, grads_cpu, _ = semi_step_grads(half, "cpu", batch_h, FLOW_STD)
+    log(f"semi-supervised step at {half} on the CPU and the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+    compare_grads(f"semi-supervised GPU vs CPU, flow head N(0, {FLOW_STD}), {half}",
+                  loss_c, grads_c, loss_cpu, grads_cpu, TRAIN_GPU_VS_CPU_RTOL)
+    del grads_c, grads_cpu, batch_h
+
+    # (b) the segmentation warp alone, forward and backward, launches no
+    # kernel: its 30 channels take the gather
+    inputs, targets = semi_batch(INSHAPE, "cuda")
+    log(f"segmentations {tuple(inputs[2].shape)} one-hot; labels present in the source: "
+        f"{int((inputs[2].sum(dim=(0, 1, 2, 3)) > 0).sum().item())} of {SEMI_LABELS}")
+    seg_flow = smooth_field(np.random.default_rng(SEED + 9), tuple(inputs[2].shape[1:4]),
+                            (5, 6, 7), 1.0, "cuda")[None].requires_grad_()
+    reset_launches()
+    torch.autograd.grad(warp_ops.transform_batched(inputs[2], seg_flow).sum(), seg_flow)
+    torch.cuda.synchronize()
+    seg_warp_launches = read_launches()
+    log(f"segmentation warp alone, forward and backward: launches {seg_warp_launches}")
+    if any(seg_warp_launches.values()):
+        raise AssertionError("the 30-channel segmentation warp launched a kernel")
+
+    # (c) three steps (flow head redrawn, as phase 4b) in cuDNN mode and
+    # with the conv kernel
+    per_mode = {}
+    for enabled in (False, True):
+        mode = "conv kernel" if enabled else "cuDNN"
+        with conv_kernel_mode(enabled):
+            model, terms = semi_recipe(INSHAPE, FLOW_STD)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            step_losses, dices, step_s, per_step = [], [], [], []
+            for _ in range(3):
+                reset_launches()
+                t0 = time.perf_counter()
+                metrics = trainer.train_step(inputs, targets)
+                step_losses.append(metrics["loss"].item())  # synchronises
+                step_s.append(time.perf_counter() - t0)
+                dices.append(metrics["dice"].item())
+                per_step.append(read_launches())
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"semi-supervised, {mode}: step losses " + ", ".join(
+            f"{x:.8f}" for x in step_losses) + "; dice " + ", ".join(f"{x:.6f}" for x in dices))
+        log(f"semi-supervised, {mode}: launches per step {per_step}; a VxmDense step from "
+            f"the same weights {one_step_launches[enabled]}")
+        log(f"float32 semi-supervised train step, {mode}, bs1, {INSHAPE}, {SEMI_LABELS} labels: "
+            + ", ".join(f"{x:.4f}" for x in step_s) + f" s/step (median of the last two "
+            f"{float(np.median(step_s[1:])):.4f}); peak memory allocated {peak_gb:.3f} GiB; {smi}")
+        if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
+            raise AssertionError(f"three semi-supervised steps ({mode}) did not lower the "
+                                 f"loss: {step_losses}")
+        if not all(np.isfinite(d) and -1.0 <= d <= 0.0 for d in dices):
+            raise AssertionError(f"the dice term left [-1, 0]: {dices}")
+        # the first step launches what a VxmDense step from the same weights
+        # launches (phases 4 and 4b); every step launches both warp kernels
+        # and, in kernel mode, the U-Net's 21 convs
+        convs = 2 * len(UNET_CONVS) - 1 if enabled else 0
+        if per_step[0] != {**one_step_launches[enabled], "conv": convs}:
+            raise AssertionError(f"the first semi-supervised step launched {per_step[0]}, a "
+                                 f"VxmDense step {one_step_launches[enabled]}")
+        if any(p["fwd"] == 0 or p["bwd"] == 0 or p["conv"] != convs or p["layout_copies"] != 0
+               for p in per_step):
+            raise AssertionError(f"a semi-supervised step missed a kernel: {per_step}")
+        per_mode[enabled] = per_step[-1]
+        del trainer, model
+    return per_mode[False], per_mode[True]
+
+
+def wide_seg_warp_check(rng):
+    """Phase 5, last gate: the warp of a WIDE_LABELS-label one-hot at
+    80x96x112 by a smooth flow (its corner table passes the gather's limit,
+    so it takes the wide-channel path), value and flow gradient on the card
+    against the CPU."""
+    half = tuple(s // 2 for s in INSHAPE)
+    moving = smooth_pair(half, "cpu")[0]
+    seg = voronoi_labels(moving[0], WIDE_LABELS, SEED + 6)[None, ..., None].numpy()
+    onehot = torch.from_numpy(np.ascontiguousarray(generators._one_hot_seg(
+        seg, np.arange(1, WIDE_LABELS + 1))))
+    table_bytes = int(np.prod(half)) * 8 * WIDE_LABELS * 4
+    if not table_bytes > interp._CORNER_TABLE_BYTES_LIMIT:
+        raise AssertionError(f"a corner table of {table_bytes} bytes takes the table path")
+    flow = smooth_field(rng, half, (5, 6, 7), 3.0, "cpu")[None]
+    w = torch.from_numpy(rng.standard_normal(onehot.shape, dtype=np.float32))
+    results = {}
+    for device in ("cuda", "cpu"):
+        f = flow.to(device).requires_grad_()
+        t0 = time.perf_counter()
+        out = warp_ops.transform_batched(onehot.to(device), f)
+        if not find_node(out, "_LinearGatherWideBackward"):
+            raise AssertionError(f"the {WIDE_LABELS}-label warp on {device} did not take the "
+                                 "wide-channel gather")
+        g, = torch.autograd.grad((out * w.to(device)).sum(), f)
+        results[device] = (out.detach().cpu(), g.cpu())
+        log(f"{WIDE_LABELS}-label one-hot warp at {half} on {device} (wide-channel gather, "
+            f"corner table {table_bytes} B): {time.perf_counter() - t0:.3f} s")
+    for name, a, b in zip(("value", "flow gradient"), results["cuda"], results["cpu"]):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        log(f"wide seg warp {name}: GPU vs CPU max abs err {err:.3e}, max {scale:.3e}, rel "
+            f"{err / scale:.3e} (tol {WARP_OPS_RTOL})")
+        if not (scale > 0 and err <= WARP_OPS_RTOL * scale):
+            raise AssertionError(f"the wide seg warp's {name} differs on the card")
+
+
+def card_vs_cpu(label, fn, *arrays):
+    """``fn`` on CUDA copies of ``arrays`` against ``fn`` on the CPU, within
+    WARP_OPS_RTOL of the CPU result's largest magnitude."""
+    t0 = time.perf_counter()
+    gpu = fn(*(a.cuda() for a in arrays)).cpu()
+    cpu = fn(*arrays)
+    scale = cpu.abs().max().item()
+    err = (gpu - cpu).abs().max().item()
+    log(f"{label}: shape {tuple(cpu.shape)}, GPU vs CPU max abs err {err:.3e}, max {scale:.3e}, "
+        f"rel {err / max(scale, 1e-30):.3e} (tol {WARP_OPS_RTOL}); {time.perf_counter() - t0:.2f} s")
+    if not (scale > 0 and err <= WARP_OPS_RTOL * scale and tuple(gpu.shape) == tuple(cpu.shape)):
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+
+def warp_ops_check(rng):
+    """Phase 5b: transform with affines, compose, integrate_vec and
+    jacobian_determinant at 80x96x112, and cli/warp at full width, on the
+    card against the CPU."""
+    half = tuple(s // 2 for s in INSHAPE)
+    vol = smooth_pair(half, "cpu")[0][0]
+
+    def near_identity(rows):
+        mat = np.eye(4, dtype=np.float32)[:rows]
+        mat[:3, :3] += 0.08 * rng.standard_normal((3, 3))
+        mat[:3, 3] = 4.0 * rng.standard_normal(3)
+        return torch.from_numpy(mat.astype(np.float32))
+
+    dense = smooth_field(rng, half, (5, 6, 7), 3.0, "cpu")
+    mats = {rows: near_identity(rows) for rows in (3, 4)}
+    with full_float32():
+        for rows, mat in mats.items():
+            for shift_center in (True, False):
+                card_vs_cpu(f"transform, {rows}x4 affine, shift_center={shift_center}",
+                            lambda v, m: warp_ops.transform(v, m, shift_center=shift_center),
+                            vol, mat)
+            card_vs_cpu(f"transform, {rows}x4 affine, shape (64, 96, 128)",
+                        lambda v, m: warp_ops.transform(v, m, shift_center=False,
+                                                        shape=(64, 96, 128)), vol, mat)
+        card_vs_cpu("compose [affine, dense]", lambda m, d: warp_ops.compose([m, d]),
+                    mats[3], dense)
+        card_vs_cpu("compose [dense, affine]", lambda d, m: warp_ops.compose([d, m]),
+                    dense, mats[4])
+        for method, steps in (("ss", 7), ("quadrature", 5), ("ode", 3)):
+            card_vs_cpu(f"integrate_vec {method}, {steps} steps",
+                        lambda d: warp_ops.integrate_vec(d, method=method, nb_steps=steps), dense)
+        card_vs_cpu("jacobian_determinant", warp_ops.jacobian_determinant, dense)
+
+        # cli/warp at full width, a dense warp and an affine
+        with tempfile.TemporaryDirectory() as tmp:
+            moving = smooth_pair(INSHAPE, "cpu")[0][0, ..., 0]
+            np.save(f"{tmp}/moving.npy", moving.numpy())
+            np.save(f"{tmp}/warp.npy", smooth_field(rng, INSHAPE, (5, 6, 7), 4.0, "cpu").numpy())
+            np.save(f"{tmp}/affine.npy", mats[3].numpy())
+            for warp_file in ("warp.npy", "affine.npy"):
+                out = {}
+                for device in ("cuda", "cpu"):
+                    t0 = time.perf_counter()
+                    warp_cli.main(["--moving", f"{tmp}/moving.npy", "--warp", f"{tmp}/{warp_file}",
+                                   "--moved", f"{tmp}/moved_{device}.nii", "--device", device])
+                    out[device] = load_volfile(f"{tmp}/moved_{device}.nii")
+                    log(f"cli/warp {warp_file} on {device}: {time.perf_counter() - t0:.2f} s")
+                scale = np.abs(out["cpu"]).max()
+                err = np.abs(out["cuda"] - out["cpu"]).max()
+                moved_by = np.abs(out["cuda"] - moving.numpy()).max()
+                log(f"cli/warp {warp_file} at {INSHAPE}: GPU vs CPU max abs err {err:.3e}, max "
+                    f"{scale:.3e} (tol {WARP_OPS_RTOL}); max change of the image {moved_by:.3f}")
+                if not (out["cuda"].shape == INSHAPE and err <= WARP_OPS_RTOL * scale
+                        and moved_by > 0.1):
+                    raise AssertionError(f"cli/warp with {warp_file}: the card disagrees with "
+                                         "the CPU or did not move the image")
 
 
 def conv_library_times(model):
@@ -1244,17 +1559,29 @@ def main(argv=None) -> int:
     log(f"phase 3c: {time.perf_counter() - t:.2f} s")
 
     t = phase("4. VxmDense training at full width")
-    train_launches = train_full_width(args.profile)
+    train_launches, redrawn_launches = train_full_width(args.profile)
     train_checkpoint_recipe()
     log(f"phase 4: {time.perf_counter() - t:.2f} s")
 
     t = phase("4b. VxmDense training with the conv kernel")
-    conv_train_launches = train_conv_kernel(moving, fixed, args.profile)
+    conv_train_launches, conv_redrawn_launches = train_conv_kernel(moving, fixed, args.profile)
     log(f"phase 4b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("5. semi-supervised segmentation training at full width")
+    semi_launches, semi_conv_launches = train_semisupervised(
+        {False: redrawn_launches, True: conv_redrawn_launches}, smi)
+    wide_seg_warp_check(np.random.default_rng(SEED + 7))
+    log(f"phase 5: {time.perf_counter() - t:.2f} s")
+
+    t = phase("5b. warp ops on the card")
+    warp_ops_check(np.random.default_rng(SEED + 8))
+    log(f"phase 5b: {time.perf_counter() - t:.2f} s")
 
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
-             "train_step_conv": conv_train_launches}
+             "train_step_conv": conv_train_launches,
+             "train_step_semisupervised": semi_launches,
+             "train_step_semisupervised_conv": semi_conv_launches}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -1263,7 +1590,7 @@ def main(argv=None) -> int:
         name="warp_bounded_fwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:269",
-        launches=train_launches["fwd"],
+        launches=semi_launches["fwd"],
         launches_by_path={path: n["fwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=serving["ms"], plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
@@ -1272,7 +1599,7 @@ def main(argv=None) -> int:
         name="warp_bounded_bwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:952",
-        launches=train_launches["bwd"],
+        launches=semi_launches["bwd"],
         launches_by_path={path: n["bwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=serving_bwd["ms"], plain_ms=serving_bwd["plain_ms"],
@@ -1283,7 +1610,7 @@ def main(argv=None) -> int:
         # float32 train step
         name="conv3_fwd", route="cuda", source="voxelmorph_tpu_torch/csrc/conv3.cu",
         replaces="voxelmorph_tpu/ops/pallas_conv.py:124",
-        launches=conv_train_launches["conv"],
+        launches=semi_conv_launches["conv"],
         launches_by_path={path: n["conv"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in conv_rows),
         max_err_over_tol=max(r["max_err_over_tol"] for r in conv_rows),

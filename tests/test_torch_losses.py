@@ -1,7 +1,7 @@
 """The PyTorch port's losses against the JAX package and the golden fixtures.
 
-Values and gradients (with respect to the prediction) of NCC, MSE, Grad and
-KL, on inputs made with numpy from seeds, within 1e-5 of each quantity's
+Values and gradients (with respect to the prediction) of NCC, MSE, Grad, KL,
+TukeyBiweight, Dice and MutualInformation, on inputs made with numpy from seeds, within 1e-5 of each quantity's
 largest magnitude (float32; the sums run in other orders). The golden
 fixtures are held as ``tests/test_golden.py`` holds the JAX package: within
 1e-5 relative and 1e-6 absolute.
@@ -79,6 +79,43 @@ def test_kl_matches_jax():
              np.zeros_like(params[..., :3]), params)
     np.testing.assert_array_equal(losses.KL(10.0, shape).D.numpy(),
                                   np.asarray(jax_losses.KL(10.0, shape).D))
+
+
+@pytest.mark.parametrize("c", [0.5, 0.2])
+def test_tukey_biweight_matches_jax(c):
+    """Errors on both sides of the threshold c (y_pred - y_true in [-1, 1])."""
+    rng = np.random.default_rng(5)
+    y_true = rng.uniform(size=(2, 7, 8, 6, 1)).astype(np.float32)
+    y_pred = (y_true + rng.uniform(-1, 1, size=y_true.shape)).astype(np.float32)
+    assert (np.abs(y_pred - y_true) > c).mean() > 0.2
+    assert (np.abs(y_pred - y_true) < c).mean() > 0.2
+    _compare(jax_losses.TukeyBiweight(c).loss, losses.TukeyBiweight(c).loss, y_true, y_pred)
+
+
+def test_dice_matches_jax():
+    """Soft Dice of one-hot maps against soft predictions, with a label that
+    neither sample has nor predicts (bottom == 0: its Dice counts as 0)."""
+    rng = np.random.default_rng(6)
+    labels = rng.integers(0, 3, size=(2, 7, 8, 6))
+    y_true = (labels[..., None] == np.arange(4)).astype(np.float32)
+    logits = rng.normal(size=(2, 7, 8, 6, 4)).astype(np.float32)
+    y_pred = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    y_pred[..., 3] = 0.0
+    y_pred = y_pred.astype(np.float32)
+    _compare(jax_losses.Dice().loss, losses.Dice().loss, y_true, y_pred)
+    # a perfect prediction of the present labels: -3/4 with the empty label
+    perfect = losses.Dice().loss(torch.from_numpy(y_true), torch.from_numpy(y_true))
+    assert perfect.item() == pytest.approx(-0.75)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(nb_bins=8, minval=-0.2, maxval=1.2, sigma_ratio=1.0)],
+                         ids=["default", "wide"])
+def test_mutual_information_matches_jax(kw):
+    rng = np.random.default_rng(7)
+    y_true = rng.uniform(-0.1, 1.1, size=(2, 7, 8, 6, 1)).astype(np.float32)
+    y_pred = (0.7 * y_true + 0.3 * rng.uniform(size=y_true.shape)).astype(np.float32)
+    _compare(jax_losses.MutualInformation(**kw).loss, losses.MutualInformation(**kw).loss,
+             y_true, y_pred)
 
 
 def _assert_golden(out, gold):

@@ -1,11 +1,13 @@
 """Registration losses of the VxmDense training path.
 
-Counterpart of ``voxelmorph_tpu/losses.py`` (NCC, MSE, Grad, KL), in plain
+Counterpart of ``voxelmorph_tpu/losses.py`` (NCC, MSE, TukeyBiweight, Dice,
+Grad, KL, MutualInformation), in plain
 PyTorch with the JAX package's formulations: NCC's box filters are separable
 window sums (a cumulative sum per axis), and KL's degree matrix is the
 closed-form neighbour count. Every loss takes channels-last batched tensors
 ``(B, *spatial, C)`` and ``.loss(y_true, y_pred)`` returns one value per
-batch element (MSE and KL a scalar), as in the JAX package.
+batch element (MSE, TukeyBiweight, Dice and KL a scalar), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["NCC", "MSE", "Grad", "KL"]
+__all__ = ["NCC", "MSE", "TukeyBiweight", "Dice", "Grad", "KL", "MutualInformation"]
 
 
 def _window_sum(x: torch.Tensor, win: Sequence[int], axes: Sequence[int]) -> torch.Tensor:
@@ -108,6 +110,37 @@ class MSE:
         return (1.0 / (self.image_sigma ** 2)) * m
 
 
+class TukeyBiweight:
+    """Tukey's biweight robust loss with threshold ``c``: the mean over every
+    element of ``c^2/2 * (1 - (1 - e^2/c^2)^3)`` where the squared error e^2
+    is at most c^2, and ``c^2/2`` above it."""
+
+    def __init__(self, c: float = 0.5):
+        self.csq = c * c
+
+    def loss(self, y_true, y_pred):
+        error_sq = (y_true - y_pred) ** 2
+        below = error_sq <= self.csq
+        rho_above = (~below).to(error_sq.dtype) * (self.csq / 2)
+        rho_below = (self.csq / 2) * (
+            1 - (1 - (torch.where(below, error_sq, 0.0) / self.csq)) ** 3)
+        return torch.mean(rho_above + rho_below)
+
+
+class Dice:
+    """Negative soft Dice over one-hot probability maps ``(B, *S, L)``:
+    ``2 sum(t p) / sum(t + p)`` per sample and label (0 where both are empty),
+    averaged over samples and labels."""
+
+    def loss(self, y_true, y_pred):
+        vol_axes = tuple(range(1, y_pred.dim() - 1))
+        top = 2 * torch.sum(y_true * y_pred, dim=vol_axes)
+        bottom = torch.sum(y_true + y_pred, dim=vol_axes)
+        empty = bottom == 0
+        dice = torch.where(empty, 0.0, top / torch.where(empty, 1.0, bottom))
+        return -torch.mean(dice)
+
+
 class Grad:
     """First-order gradient penalty on a dense field ``(B, *S, N)``: forward
     differences per axis, 'l1' or 'l2', averaged over axes; ``loss_mult``
@@ -178,3 +211,40 @@ class KL:
         sigma_term = torch.mean(self.prior_lambda * D * torch.exp(log_sigma) - log_sigma)
         prec_term = self.prior_lambda * self.prec_loss(mean)
         return 0.5 * ndims * (sigma_term + prec_term)
+
+
+class MutualInformation:
+    """Soft-binned (Parzen window) mutual information between intensity
+    volumes: each intensity, clipped to [minval, maxval], belongs to
+    ``nb_bins`` Gaussian bins (width ``sigma_ratio`` of the bin spacing),
+    normalised over bins; MI of the joint soft histogram, per sample.
+    ``loss`` is its negative."""
+
+    def __init__(self, nb_bins: int = 16, minval: float = 0.0, maxval: float = 1.0,
+                 sigma_ratio: float = 0.5):
+        self.nb_bins = nb_bins
+        self.bin_centers = torch.linspace(minval, maxval, nb_bins)
+        sigma = torch.mean(torch.diff(self.bin_centers)) * sigma_ratio
+        self.preterm = 1.0 / (2 * sigma * sigma)
+
+    def volumes(self, y_true, y_pred):
+        centers = self.bin_centers.to(device=y_pred.device, dtype=y_pred.dtype)
+        preterm = self.preterm.to(device=y_pred.device, dtype=y_pred.dtype)
+        yt = torch.clamp(y_true, centers[0], centers[-1]).reshape(y_true.shape[0], -1, 1)
+        yp = torch.clamp(y_pred, centers[0], centers[-1]).reshape(y_pred.shape[0], -1, 1)
+        vbc = centers.reshape(1, 1, -1)
+
+        # soft bin memberships (B, V, K), normalised over the bins
+        I_a = torch.exp(-preterm * torch.square(yt - vbc))
+        I_a = I_a / torch.sum(I_a, dim=-1, keepdim=True)
+        I_b = torch.exp(-preterm * torch.square(yp - vbc))
+        I_b = I_b / torch.sum(I_b, dim=-1, keepdim=True)
+
+        pab = torch.einsum("bvk,bvl->bkl", I_a, I_b) / yt.shape[1]
+        pa = torch.mean(I_a, dim=1, keepdim=True)  # (B, 1, K)
+        pb = torch.mean(I_b, dim=1, keepdim=True)
+        papb = torch.einsum("bik,bil->bkl", pa, pb) + 1e-8
+        return torch.sum(pab * torch.log(pab / papb + 1e-8), dim=(1, 2))
+
+    def loss(self, y_true, y_pred):
+        return -self.volumes(y_true, y_pred)

@@ -17,10 +17,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .vxm import VxmDense
+from .vxm import VxmDense, VxmDenseSemiSupervisedSeg
 
 __all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "load_model",
            "save_model"]
+
+# the model classes a checkpoint may name, by the JAX class name
+_MODELS = {cls.__name__: cls for cls in (VxmDense, VxmDenseSemiSupervisedSeg)}
 
 _SEP = "||"
 _EXTRA = "__extra__"
@@ -84,7 +87,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return flat
 
 
-def save_model(path: str, model: VxmDense,
+def save_model(path: str, model: torch.nn.Module,
                extra_trees: Optional[Dict[str, Dict[str, np.ndarray]]] = None) -> None:
     """Write ``model`` (its config and float32 params) as the JAX package's
     ``save_model`` does, which its ``load_model`` reads. ``extra_trees`` maps
@@ -132,15 +135,16 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def load_model(path: str, device="cuda", **overrides) -> VxmDense:
-    """Rebuild a checkpoint's model with its weights, on ``device``.
+def load_model(path: str, device="cuda", **overrides) -> torch.nn.Module:
+    """Rebuild a checkpoint's model (VxmDense or VxmDenseSemiSupervisedSeg)
+    with its weights, on ``device``, in eval mode.
 
     ``overrides`` replace config fields (for example ``dtype=torch.float32``).
     """
     device = resolve_device(device)
     name, config, flat = read_checkpoint(path)
-    if name != "VxmDense":
+    if name not in _MODELS:
         raise NotImplementedError(f"model class '{name}' is not ported yet")
-    model = VxmDense(**{**config, **overrides})
+    model = _MODELS[name](**{**config, **overrides})
     model.load_state_dict(params_from_jax(flat))
     return model.to(device).eval()

@@ -1,4 +1,5 @@
-"""VxmDense, the dense unsupervised registration network.
+"""VxmDense, the dense unsupervised registration network, and its
+semi-supervised segmentation variant.
 
 Counterpart of ``voxelmorph_tpu/models/vxm.py``: concat(source, target) ->
 U-Net -> flow conv [-> log-sigma head -> sample] -> rescale to the svf and
@@ -6,7 +7,8 @@ integration resolutions -> scaling and squaring -> rescale to full
 resolution -> warp. Inputs and outputs are channels-last, ``(B, *S, C)``
 images and ``(B, *S, N)`` flows, as in the JAX package. The module's
 training mode (``model.train()`` / ``model.eval()``) plays the part of the
-JAX call's ``train`` argument.
+JAX call's ``train`` argument. ``VxmDenseSemiSupervisedSeg`` adds the warp
+of one-hot segmentations at a reduced resolution.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from ..ops import warp as warp_ops
 from ..ops.warp_bounded import MAX_CHANNELS as _MAX_WARP_CHANNELS
 from .unet import Unet
 
-__all__ = ["VxmDense", "rescale_flow", "sample_normal"]
+__all__ = ["VxmDense", "VxmDenseSemiSupervisedSeg", "registration_model", "rescale_flow",
+           "sample_normal"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -205,3 +208,64 @@ class VxmDense(nn.Module):
                 "warp": pos_flow,
             }[self.reg_field.lower()]
         return outputs
+
+
+class VxmDenseSemiSupervisedSeg(nn.Module):
+    """VxmDense plus the warp of downsampled one-hot segmentations.
+
+    The network is a ``VxmDense`` held as ``self.vxm`` (the JAX module's
+    ``vxm`` submodule, so checkpoint keys are ``vxm||...``), bidirectional
+    when ``bidir`` or ``bidir_labels``. ``forward(source, target, src_seg,
+    trg_seg=None, generator=None)`` returns VxmDense's outputs plus
+    'y_seg_source', ``src_seg`` ``(B, *S/seg_resolution, nb_labels)`` warped
+    (linear) by pos_flow rescaled to the segmentation's resolution, and with
+    ``bidir_labels`` 'y_seg_target', ``trg_seg`` warped by neg_flow.
+    """
+
+    def __init__(self, inshape: Sequence[int], nb_labels: int, nb_unet_features=None,
+                 seg_resolution: int = 2, bidir: bool = False, bidir_labels: bool = False,
+                 int_steps: int = 7, int_resolution: int = 2, use_probs: bool = False,
+                 src_feats: int = 1, trg_feats: int = 1, reg_field: str = "preintegrated",
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.vxm = VxmDense(inshape, nb_unet_features=nb_unet_features,
+                            bidir=bidir or bidir_labels, int_steps=int_steps,
+                            int_resolution=int_resolution, use_probs=use_probs,
+                            src_feats=src_feats, trg_feats=trg_feats, reg_field=reg_field,
+                            dtype=dtype, generator=generator)
+        self.config = dict(
+            inshape=tuple(inshape), nb_labels=nb_labels, nb_unet_features=nb_unet_features,
+            seg_resolution=seg_resolution, bidir=bidir, bidir_labels=bidir_labels,
+            int_steps=int_steps, int_resolution=int_resolution, use_probs=use_probs,
+            src_feats=src_feats, trg_feats=trg_feats, reg_field=reg_field,
+            dtype=self.vxm.dtype)
+        self.inshape = tuple(inshape)
+        self.nb_labels = nb_labels
+        self.seg_resolution = seg_resolution
+        self.bidir = bidir
+        self.bidir_labels = bidir_labels
+
+    def forward(self, source: torch.Tensor, target: torch.Tensor, src_seg: torch.Tensor,
+                trg_seg: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        out = self.vxm(source, target, generator=generator)
+        seg_flow = rescale_flow(out["pos_flow"], 1.0 / self.seg_resolution)
+        out["y_seg_source"] = warp_ops.transform_batched(src_seg.float(), seg_flow)
+        if self.bidir_labels:
+            if trg_seg is None:
+                raise ValueError("bidir_labels requires a target segmentation input")
+            neg_seg_flow = rescale_flow(out["neg_flow"], 1.0 / self.seg_resolution)
+            out["y_seg_target"] = warp_ops.transform_batched(trg_seg.float(), neg_seg_flow)
+        return out
+
+
+def registration_model(model: nn.Module):
+    """The net that registers image pairs inside a semi-supervised model,
+    and its weights: ``(VxmDense, state dict)``. Deployment registers plain
+    pairs; the segmentation inputs exist only for training."""
+    name = type(model).__name__
+    if name == "VxmDenseSemiSupervisedSeg":
+        return model.vxm, model.vxm.state_dict()
+    if name == "VxmDenseSemiSupervisedPointCloud":
+        raise NotImplementedError(f"{name} is not ported yet")
+    raise ValueError(f"no registration extraction for {name}")

@@ -5,8 +5,11 @@ at continuous ij locations with the JAX package's semantics: coordinates are
 clamped to ``[0, dim - 1]`` before the floor (so samples past the edge take
 the edge value), unless ``fill_value`` is given, in which case any location
 outside ``[0, dim - 1]`` in any dimension gets ``fill_value``. Its autograd
-gradients are those of the JAX package, at the volume's edges too. It is a
-plain tensor gather, not a kernel: the JAX package leaves it to XLA too.
+gradients are those of the JAX package, at the volume's edges too. A
+multi-channel volume whose corner table (``V * 2^N * C`` values) would pass
+``_CORNER_TABLE_BYTES_LIMIT`` takes the JAX package's wide-channel path and
+its rules (``_LinearGatherWide``). It is a plain tensor gather, not a kernel:
+the JAX package leaves it to XLA too.
 """
 
 from __future__ import annotations
@@ -19,6 +22,12 @@ import numpy as np
 import torch
 
 __all__ = ["ndgrid", "interpn", "resize"]
+
+
+# Above this corner-table footprint (V * 2^N * C * itemsize of the compute
+# dtype) a multi-channel linear gather takes the wide-channel path, as in the
+# JAX package (voxelmorph_tpu/ops/interp.py:_CORNER_TABLE_BYTES_LIMIT).
+_CORNER_TABLE_BYTES_LIMIT = 1 << 30
 
 
 def ndgrid(shape: Sequence[int], dtype=torch.float32, device=None) -> torch.Tensor:
@@ -49,6 +58,89 @@ def _clamp_with_jax_grad(loc: torch.Tensor, max_loc: int, edge_grad: float) -> t
     on_edge = ((loc == 0) | (loc == max_loc)).to(loc.dtype)
     slope = inside + edge_grad * on_edge
     return clamped.detach() + slope * (loc - loc.detach())
+
+
+def _corners(nd: int, strides: Sequence[int]):
+    """(bits, flat offset) of each of the 2^nd corners of a cell."""
+    out = []
+    for c in range(2 ** nd):
+        bits = [(c >> d) & 1 for d in range(nd)]
+        out.append((bits, sum(b * s for b, s in zip(bits, strides))))
+    return out
+
+
+def _floor_weights(loc_dims, max_loc, strides, dtype):
+    """Per-dim floor-corner and +1-corner weights of the clamped locations,
+    and the flat index of each location's floor corner."""
+    idx0 = [torch.floor(l).long().clamp(0, m) for l, m in zip(loc_dims, max_loc)]
+    w1 = [l.clamp(0.0, m) - i.to(dtype) for l, m, i in zip(loc_dims, max_loc, idx0)]
+    w0 = [1.0 - w for w in w1]
+    lin0 = functools.reduce(torch.add, [i * s for i, s in zip(idx0, strides)])
+    return w0, w1, lin0
+
+
+def _weight(w0, w1, bits, skip=None):
+    """The product over dims (but ``skip``) of each dim's corner weight."""
+    ws = [w1[d] if b else w0[d] for d, b in enumerate(bits) if d != skip]
+    return functools.reduce(torch.mul, ws) if ws else None
+
+
+class _LinearGatherWide(torch.autograd.Function):
+    """The JAX package's wide-channel multilinear gather
+    (``_linear_gather_wide``): 2^N per-corner gathers from a channels-first
+    ``(C, V)`` volume, the +1 corner's flat index clipped to the last voxel.
+
+    Its backward is JAX's custom VJP: each corner is gathered again from the
+    saved volume (no ``(C, M)`` corner product is kept), d vol is a scatter
+    add over the clipped rows, and d loc sums over channels and passes where
+    ``0 <= loc <= dim - 1``, the edges included, and nowhere beyond.
+    """
+
+    @staticmethod
+    def forward(ctx, vol_cf, spatial, *loc_dims):
+        ctx.spatial = spatial
+        ctx.save_for_backward(vol_cf, *loc_dims)
+        strides = _flatten_strides(spatial)
+        max_loc = [int(s) - 1 for s in spatial]
+        w0, w1, lin0 = _floor_weights(loc_dims, max_loc, strides, loc_dims[0].dtype)
+        last = vol_cf.shape[1] - 1
+        out = None
+        for bits, off in _corners(len(spatial), strides):
+            term = vol_cf[:, (lin0 + off).clamp(max=last)] * _weight(w0, w1, bits)[None, :]
+            out = term if out is None else out + term
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        vol_cf, *loc_dims = ctx.saved_tensors
+        spatial = ctx.spatial
+        nd = len(spatial)
+        strides = _flatten_strides(spatial)
+        max_loc = [int(s) - 1 for s in spatial]
+        w0, w1, lin0 = _floor_weights(loc_dims, max_loc, strides, loc_dims[0].dtype)
+        acc_dtype = torch.promote_types(vol_cf.dtype, g.dtype)
+        dvol = None
+        if ctx.needs_input_grad[0]:
+            dvol = torch.zeros(vol_cf.shape, dtype=acc_dtype, device=vol_cf.device)
+        dloc = [torch.zeros_like(lin0, dtype=g.dtype) for _ in range(nd)]
+        last = vol_cf.shape[1] - 1
+        for bits, off in _corners(nd, strides):
+            rows = (lin0 + off).clamp(0, last)
+            if dvol is not None:
+                dvol.index_add_(1, rows, (g * _weight(w0, w1, bits)[None, :]).to(acc_dtype))
+            gv = (g * vol_cf[:, rows]).sum(dim=0)  # d loc sums over channels
+            for d in range(nd):
+                w_oth = _weight(w0, w1, bits, skip=d)
+                term = gv if w_oth is None else gv * w_oth
+                dloc[d] = dloc[d] + term if bits[d] else dloc[d] - term
+        dloc = [dl * ((l >= 0) & (l <= m)).to(g.dtype)
+                for dl, l, m in zip(dloc, loc_dims, max_loc)]
+        return (None if dvol is None else dvol.to(vol_cf.dtype), None, *dloc)
+
+
+def _linear_gather_wide(vol_cf: torch.Tensor, spatial, loc_dims) -> torch.Tensor:
+    """``(C, V)`` volume at N ``(M,)`` coordinate vectors -> ``(C, M)``."""
+    return _LinearGatherWide.apply(vol_cf, tuple(int(s) for s in spatial), *loc_dims)
 
 
 def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
@@ -90,6 +182,11 @@ def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
             torch.round(l).long().clamp(0, m) * s
             for l, m, s in zip(loc_dims, max_loc, strides)])
         out = vol_flat[lin]
+    elif (interp_method == "linear" and nch > 1 and vol_flat.shape[0] * 2 ** nd * nch
+          * torch.finfo(compute_dtype).bits // 8 > _CORNER_TABLE_BYTES_LIMIT):
+        # the JAX package's wide-channel path: channels first, the +1 corner
+        # clipped to the last voxel, its own gradient rules at the edges
+        out = _linear_gather_wide(vol_flat.movedim(-1, 0), spatial, loc_dims).movedim(0, -1)
     elif interp_method == "linear":
         idx0 = [torch.floor(l).long().clamp(0, m) for l, m in zip(loc_dims, max_loc)]
         # the clamped coordinate; its gradient is the JAX package's (see

@@ -2,7 +2,8 @@
 
 The port's own copies of ``voxelmorph_tpu.py.utils.default_unet_features``,
 ``read_file_list``, ``read_pair_list``, ``load_volfile``, ``save_volfile``
-(for NIfTI (.nii/.nii.gz), .npy and .npz volumes) and ``dice``.
+(for NIfTI (.nii/.nii.gz), .npy and .npz volumes), ``dice`` and
+``jacobian_determinant``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 from . import io as _io
 
 __all__ = ["default_unet_features", "read_file_list", "read_pair_list", "load_volfile",
-           "save_volfile", "dice"]
+           "save_volfile", "dice", "jacobian_determinant"]
 
 
 def default_unet_features():
@@ -102,3 +103,17 @@ def dice(array1, array2, labels=None, include_zero=False):
         denom = np.count_nonzero(in_a) + np.count_nonzero(in_b)
         scores[i] = 2.0 * np.count_nonzero(in_a & in_b) / max(denom, np.finfo(float).eps)
     return scores
+
+
+def jacobian_determinant(disp):
+    """Jacobian determinant of a displacement field ``(*vol_shape, N)``,
+    N in (2, 3), in numpy: central differences of ``phi = id + disp``
+    (``np.gradient``), ``J[..., i, j] = d phi_i / d x_j``, reduced by
+    ``np.linalg.det`` (the convention of ``ops.warp.jacobian_determinant``)."""
+    volshape = disp.shape[:-1]
+    nd = len(volshape)
+    if nd not in (2, 3):
+        raise ValueError("flow has to be 2D or 3D")
+    grid = np.stack(np.meshgrid(*map(np.arange, volshape), indexing="ij"), axis=-1)
+    J = np.stack(np.gradient(grid + disp, axis=tuple(range(nd))), axis=-1)
+    return np.linalg.det(J)
