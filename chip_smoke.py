@@ -70,7 +70,30 @@ Phases:
   5b. the warp ops on the card against the port's CPU run: transform with
      affine matrices, compose, integrate_vec (ss, quadrature, ode),
      jacobian_determinant, and cli/warp at full width with a dense warp and
-     with an affine.
+     with an affine;
+  6. point-cloud semi-supervised training at full width: the recipe of
+     scripts/train_semisupervised_pointcloud.py with --surf-bidir (MSE both
+     ways at 0.5, Grad-l2 at 0.01, the SDT terms at 0.25, Adam 1e-4,
+     float32, 5000 surface points of 4 of phase 5's 30 labels a step) on
+     VxmDenseSemiSupervisedPointCloud: generators.surf_semisupervised on the
+     card against the CPU at 80x96x112 (8 labels), bit for bit; one step's
+     loss and gradients on the card against the CPU there; the generator's
+     seconds per draw at full width on the card; three steps in cuDNN mode
+     and three with the conv kernel (flow head redrawn) that lower the loss,
+     with their launches, seconds and peak memory; the checkpoint registered
+     through cli/register via registration_model;
+  6b. --cache-device and --steps-per-dispatch: Trainer.fit_cached_pairs on 4
+     full-width volumes held on the card, one 4-step dispatch against 4
+     single steps from the same weights on the same picks (params bit-equal
+     with cudnn.deterministic, else within 1e-6 of their largest
+     magnitude), 1 host fetch of metrics against 4, seconds per step; then
+     phase 4's step with and without the rematerialised integration
+     (gradients bit-equal; peak memory and seconds per step);
+  6c. a 2-D VxmDense on the pair's middle slice (192x224): one step's
+     gradients and three steps and a register call, card against CPU, no
+     kernel launched; a 3-D VxmDense with do_res and a tanh final activation
+     at full width, bfloat16 and float32, conv kernel against cuDNN mode,
+     every conv launched with the activation off.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -95,10 +118,12 @@ import torch
 import torch.nn.functional as F
 
 from voxelmorph_tpu_torch import _build, generators, losses
+from voxelmorph_tpu_torch.cli import register as register_cli
 from voxelmorph_tpu_torch.cli import warp as warp_cli
 from voxelmorph_tpu_torch.models.modelio import load_model
 from voxelmorph_tpu_torch.models.unet import ConvBlock
-from voxelmorph_tpu_torch.models.vxm import VxmDense, VxmDenseSemiSupervisedSeg
+from voxelmorph_tpu_torch.models.vxm import (VxmDense, VxmDenseSemiSupervisedPointCloud,
+                                             VxmDenseSemiSupervisedSeg)
 from voxelmorph_tpu_torch.ops import conv3, interp
 from voxelmorph_tpu_torch.ops import warp as warp_ops
 from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
@@ -197,6 +222,18 @@ WIDE_LABELS = 40
 # the wide gather's coordinate gradient) run in other orders
 WARP_OPS_RTOL = 1e-5
 
+# the point-cloud recipe (scripts/train_semisupervised_pointcloud.py with
+# --surf-bidir): 5000 surface points of 4 of the map's labels a step; its
+# generator, card against CPU at half width, on the map's first 8 labels
+# (the atlas's SDTs are computed for every label the run uses)
+SURF_POINTS = 5000
+POINT_LABELS_SAMPLED = 4
+POINT_CPU_LABELS = 8
+# K, the steps of one --steps-per-dispatch dispatch in phase 6b, and the
+# largest difference of its params from single steps', relative to each
+# tensor's largest magnitude, where the run is not bit-equal
+DISPATCH_STEPS = 4
+DISPATCH_RTOL = 1e-6
 # the least share of bf16 conv outputs the kernel and its plain version agree
 # on bit for bit in the same rounding order
 BF16_EQUAL_SHARE = 0.99
@@ -502,15 +539,22 @@ def voronoi_labels(img, nb_labels, seed):
     return torch.where(mask, nearest + 1, 0).to(torch.int32)
 
 
-def semi_batch(spatial, device):
-    """The semi-supervised generator's batch on smooth_pair: (src, trg,
-    src_seg), (trg, zero flow, trg_seg), the segs one-hot over SEMI_LABELS
-    labels at half resolution (generators._one_hot_seg, downsize 2), the
-    fixed scan's labels carried by the pair's displacement (nearest)."""
+def labelled_pair(spatial, device):
+    """smooth_pair with SEMI_LABELS-label maps: the moving scan's Voronoi
+    labels, and the fixed scan's, carried by the pair's displacement
+    (nearest). Returns (moving, fixed, moving labels, fixed labels)."""
     moving, fixed, disp = smooth_pair_and_disp(spatial, device)
     src = voronoi_labels(moving[0], SEMI_LABELS, SEED + 5)
     trg = warp_ops.transform(src.float(), disp, interp_method="nearest",
                              window_halo=None).round().to(torch.int32)
+    return moving, fixed, src, trg
+
+
+def semi_batch(spatial, device):
+    """The semi-supervised generator's batch on labelled_pair: (src, trg,
+    src_seg), (trg, zero flow, trg_seg), the segs one-hot over SEMI_LABELS
+    labels at half resolution (generators._one_hot_seg, downsize 2)."""
+    moving, fixed, src, trg = labelled_pair(spatial, device)
     labels = np.arange(1, SEMI_LABELS + 1)
     segs = [torch.from_numpy(np.ascontiguousarray(generators._one_hot_seg(
         s.cpu().numpy()[None, ..., None], labels, downsize=2))).to(device) for s in (src, trg)]
@@ -896,8 +940,10 @@ def conv_bound(ci, co, vox, dtype, f32_rate=F32_CONV_FLOPS_PER_S):
 
 def check_conv3(seed):
     """The conv kernel against its plain version at the full-width U-Net's
-    conv shapes: the forward in both rounding orders and the input-gradient
-    orientation (taps flipped, ci and co swapped, no bias or activation),
+    conv shapes: the forward in both rounding orders, the forward with the
+    activation off and a non-zero bias (``do_res`` blocks), and the
+    input-gradient orientation (taps flipped, ci and co swapped, no bias or
+    activation),
     within conv3.kernel_tolerance and bit-equal across two launches; times of
     the rounding order the main path uses; cuDNN's float32 in full float32,
     as the kernel computes. Returns the rows and the totals by (dtype,
@@ -931,6 +977,11 @@ def _check_conv3(seed):
                 "fwd": (x, kernel, bias, 0.2, [path_order, not path_order], (ci, co),
                         lambda order, x=x, kernel=kernel, bias=bias: conv3.conv3_same_cf(
                             x, kernel, bias, act_slope=0.2, round_conv_first=order)),
+                # the activation off with a bias: the mode of a do_res block
+                # and of a block before a final activation
+                "fwd_act_off": (x, kernel, bias, None, [path_order], (ci, co),
+                                lambda order, x=x, kernel=kernel, bias=bias: conv3.conv3_same_cf(
+                                    x, kernel, bias, act_slope=None, round_conv_first=order)),
                 "dx": (g, flipped, torch.zeros(ci, device="cuda"), None, [False], (co, ci),
                        lambda order, g=g, kernel=kernel: conv3.conv3_input_grad(g, kernel)),
             }
@@ -979,7 +1030,7 @@ def _check_conv3(seed):
                     raise AssertionError(f"conv3 kernel equals its plain version on only "
                                          f"{equal_share:.4f} of the outputs at {row}")
                 rows.append(row)
-                if orientation == "fwd" or index > 0:
+                if orientation != "dx" or index > 0:
                     t = totals.setdefault((row["dtype"], orientation), dict(
                         convs=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         t_bytes=0.0, t_ops=0.0, cuda_core_bound_ms=0.0))
@@ -1022,17 +1073,9 @@ def one_step_grads(inshape, device, moving, fixed, flow_std=None):
     """Loss and parameter gradients of one train step of the default recipe
     (no update, ``flow_std`` as in ``default_recipe``), with the kernel
     launch counts of the step."""
-    model, terms = default_recipe(inshape, flow_std)
-    trainer = Trainer(model, terms, device=device)
-    trainer.model.train()
-    zero = torch.zeros((1, *inshape, 3), device=device)
-    reset_launches()
-    loss, _ = trainer.loss_fn((moving.to(device), fixed.to(device)), (fixed.to(device), zero))
-    loss.backward()
-    if device == "cuda":
-        torch.cuda.synchronize()
-    grads = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}
-    return loss.item(), grads, read_launches()
+    zero = torch.zeros((1, *inshape, 3))
+    return recipe_step_grads(default_recipe, inshape, device, ((moving, fixed), (fixed, zero)),
+                             flow_std)
 
 
 def compare_grads(label, loss_a, grads_a, loss_b, grads_b, rtol):
@@ -1222,10 +1265,10 @@ def semi_recipe(inshape, flow_std=None):
     return model, terms
 
 
-def semi_step_grads(inshape, device, batch, flow_std=None):
-    """Loss and parameter gradients of one semi-supervised train step (no
+def recipe_step_grads(recipe, inshape, device, batch, flow_std=None):
+    """Loss and parameter gradients of one train step of ``recipe`` (no
     update), with the kernel launch counts of the step."""
-    model, terms = semi_recipe(inshape, flow_std)
+    model, terms = recipe(inshape, flow_std)
     trainer = Trainer(model, terms, device=device)
     trainer.model.train()
     inputs, targets = (tuple(a.to(device) for a in part) for part in batch)
@@ -1266,9 +1309,9 @@ def train_semisupervised(one_step_launches, smi):
     half = tuple(s // 2 for s in INSHAPE)
     batch_h = semi_batch(half, "cpu")
     t0 = time.perf_counter()
-    loss_c, grads_c, _ = semi_step_grads(half, "cuda", batch_h, FLOW_STD)
+    loss_c, grads_c, _ = recipe_step_grads(semi_recipe, half, "cuda", batch_h, FLOW_STD)
     with window_halo("1"):
-        loss_cpu, grads_cpu, _ = semi_step_grads(half, "cpu", batch_h, FLOW_STD)
+        loss_cpu, grads_cpu, _ = recipe_step_grads(semi_recipe, half, "cpu", batch_h, FLOW_STD)
     log(f"semi-supervised step at {half} on the CPU and the card: "
         f"{time.perf_counter() - t0:.2f} s")
     compare_grads(f"semi-supervised GPU vs CPU, flow head N(0, {FLOW_STD}), {half}",
@@ -1444,6 +1487,407 @@ def warp_ops_check(rng):
                                          "the CPU or did not move the image")
 
 
+@contextlib.contextmanager
+def integration_remat(remat):
+    """Run with the models' integration (``integrate_vec_batched``)
+    rematerialised or not; the default is rematerialised, as in JAX."""
+    original = warp_ops.integrate_vec_batched
+    warp_ops.integrate_vec_batched = lambda *a, **kw: original(*a, remat=remat, **kw)
+    try:
+        yield
+    finally:
+        warp_ops.integrate_vec_batched = original
+
+
+def pointcloud_files(tmp, spatial, device):
+    """labelled_pair as the point-cloud trainer's files: the atlas (the
+    moving scan and its labels) and one subject (the fixed scan and its
+    labels), npz files with 'vol' and 'seg' in ``tmp``."""
+    moving, fixed, src, trg = labelled_pair(spatial, device)
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(f"{tmp}/atlas.npz", vol=moving[0, ..., 0].cpu().numpy(), seg=src.cpu().numpy())
+    np.savez(f"{tmp}/subject.npz", vol=fixed[0, ..., 0].cpu().numpy(), seg=trg.cpu().numpy())
+    return f"{tmp}/atlas.npz", f"{tmp}/subject.npz"
+
+
+def pointcloud_generator(tmp, device, labels=None):
+    """generators.surf_semisupervised as the point-cloud recipe runs it
+    (--surf-bidir, SURF_POINTS points, POINT_LABELS_SAMPLED labels a step,
+    smoothing 0.1, SDTs at full resolution) on ``pointcloud_files``, its
+    draws from a numpy generator seeded SEED."""
+    with np.load(f"{tmp}/atlas.npz") as d:
+        vol, seg = d["vol"], d["seg"]
+    return generators.surf_semisupervised(
+        [f"{tmp}/subject.npz"], vol, seg, nb_surface_pts=SURF_POINTS, labels=labels,
+        surf_bidir=True, smooth_seg_std=0.1, nb_labels_sample=POINT_LABELS_SAMPLED,
+        sdt_vol_resize=1.0, device=device, rng=np.random.default_rng(SEED))
+
+
+def pointcloud_recipe(inshape, flow_std=None):
+    """The point-cloud recipe's model and losses: VxmDenseSemiSupervisedPointCloud
+    (a bidirectional VxmDense with default features, from seed 0), MSE at 0.5
+    both ways, Grad('l2', loss_mult=2) at 0.01 and the SDT terms at
+    0.25 / dt_sigma^2 with dt_sigma 1; ``flow_std`` redraws the flow head as
+    default_recipe does."""
+    model = VxmDenseSemiSupervisedPointCloud(
+        inshape, nb_surface_points=SURF_POINTS, nb_labels_sample=POINT_LABELS_SAMPLED,
+        int_steps=7, int_resolution=2, generator=torch.Generator().manual_seed(SEED))
+    if flow_std is not None:
+        with torch.no_grad():
+            model.vxm.flow.weight.normal_(0.0, flow_std,
+                                          generator=torch.Generator().manual_seed(SEED + 1))
+    terms = [LossTerm("y_source", losses.MSE().loss, weight=0.5, target_index=0),
+             LossTerm("y_target", losses.MSE().loss, weight=0.5, target_index=1),
+             LossTerm("reg", losses.Grad("l2", loss_mult=2).loss, weight=0.01, target_index=2,
+                      name="grad"),
+             LossTerm("subj_dt_value", losses.MSE().loss, weight=0.25, target_index=3,
+                      name="subj_dt"),
+             LossTerm("atl_dt_value", losses.MSE().loss, weight=0.25, target_index=4,
+                      name="atl_dt")]
+    return model, terms
+
+
+def train_pointcloud(smi):
+    """Phase 6: the point-cloud recipe at full width on the card. Returns
+    the launch counts of a step in cuDNN mode and in conv-kernel mode."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    half = tuple(s // 2 for s in INSHAPE)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the generator at half width on the card and on the CPU, from
+        # the same numpy seed: its images, SDT stacks and clouds bit-equal
+        pointcloud_files(f"{tmp}/half", half, "cpu")
+        labels = np.arange(1, POINT_CPU_LABELS + 1)
+        batches = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            batches[device] = next(pointcloud_generator(f"{tmp}/half", device, labels))
+            log(f"point-cloud generator at {half} on {device}, {POINT_CPU_LABELS} labels "
+                f"(atlas SDTs and the first step): {time.perf_counter() - t0:.2f} s")
+        names = ["moving", "fixed", "subject SDTs", "atlas SDTs", "subject cloud", "atlas cloud",
+                 "target fixed", "target moving", "zero flow", "zero values", "zero values"]
+        for name, a, b in zip(names, sum(batches["cuda"], []), sum(batches["cpu"], [])):
+            if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"the point-cloud generator's {name} differ on the card")
+        log(f"point-cloud generator at {half}: the {len(names)} tensors bit-equal on the card "
+            f"and the CPU (subject SDTs {tuple(batches['cpu'][0][2].shape)}, clouds "
+            f"{tuple(batches['cpu'][0][4].shape)})")
+
+        # (b) one step, the card against the port's CPU run at half width,
+        # flows of about a voxel; the CPU takes the bounded tiers too
+        batch_h = batches["cpu"]
+        t0 = time.perf_counter()
+        loss_c, grads_c, _ = recipe_step_grads(pointcloud_recipe, half, "cuda", batch_h,
+                                               FLOW_STD)
+        with window_halo("1"):
+            loss_cpu, grads_cpu, _ = recipe_step_grads(pointcloud_recipe, half, "cpu", batch_h,
+                                                       FLOW_STD)
+        log(f"point-cloud step at {half} on the CPU and the card: "
+            f"{time.perf_counter() - t0:.2f} s")
+        compare_grads(f"point-cloud GPU vs CPU, flow head N(0, {FLOW_STD}), {half}",
+                      loss_c, grads_c, loss_cpu, grads_cpu, TRAIN_GPU_VS_CPU_RTOL)
+        del grads_c, grads_cpu, batches, batch_h
+
+        # (c) the generator on the card at full width: the atlas's SDTs of
+        # every label, then a step's subject SDTs and both clouds
+        pointcloud_files(tmp, INSHAPE, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = pointcloud_generator(tmp, "cuda")
+        draws, gen_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            draws.append(next(gen))
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+        gen_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        inputs, targets = draws[0]
+        log(f"point-cloud generator on the card, {INSHAPE}, {SEMI_LABELS} labels, "
+            f"{POINT_LABELS_SAMPLED} a step, {SURF_POINTS} points: first draw {gen_s[0]:.3f} s "
+            f"(with the atlas's {SEMI_LABELS} SDTs), then " + ", ".join(
+                f"{x:.3f}" for x in gen_s[1:]) + f" s per step; peak memory {gen_peak:.3f} "
+            f"GiB; {smi}")
+        if tuple(inputs[2].shape) != (1, *INSHAPE, POINT_LABELS_SAMPLED) or \
+                tuple(inputs[4].shape) != (1, SURF_POINTS, 4) or \
+                not all(a.device.type == "cuda" and torch.isfinite(a).all() for a in inputs):
+            raise AssertionError("the point-cloud generator's tensors are not the recipe's")
+        del draws, gen
+
+        # (d) three steps (flow head redrawn, as phase 4b) on the first
+        # draw, in cuDNN mode and with the conv kernel
+        per_mode = {}
+        for enabled in (False, True):
+            mode = "conv kernel" if enabled else "cuDNN"
+            with conv_kernel_mode(enabled):
+                model, terms = pointcloud_recipe(INSHAPE, FLOW_STD)
+                trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+                torch.cuda.reset_peak_memory_stats()
+                step_losses, step_s, per_step, dts = [], [], [], []
+                for _ in range(3):
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    metrics = trainer.train_step(inputs, targets)
+                    step_losses.append(metrics["loss"].item())  # synchronises
+                    step_s.append(time.perf_counter() - t0)
+                    per_step.append(read_launches())
+                    dts.append((metrics["subj_dt"].item(), metrics["atl_dt"].item()))
+                peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"point-cloud, {mode}: step losses " + ", ".join(
+                f"{x:.8f}" for x in step_losses) + "; SDT terms (subject, atlas) " + ", ".join(
+                f"({a:.5f}, {b:.5f})" for a, b in dts))
+            log(f"point-cloud, {mode}: launches per step {per_step}")
+            log(f"float32 point-cloud train step, {mode}, bs1, {INSHAPE}: " + ", ".join(
+                f"{x:.4f}" for x in step_s) + f" s/step (median of the last two "
+                f"{float(np.median(step_s[1:])):.4f}); peak memory allocated {peak_gb:.3f} GiB; "
+                f"{smi}")
+            if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
+                raise AssertionError(f"three point-cloud steps ({mode}) did not lower the "
+                                     f"loss: {step_losses}")
+            convs = 2 * len(UNET_CONVS) - 1 if enabled else 0
+            if any(p["fwd"] == 0 or p["bwd"] == 0 or p["conv"] != convs
+                   or p["layout_copies"] != 0 for p in per_step):
+                raise AssertionError(f"a point-cloud step missed a kernel: {per_step}")
+            per_mode[enabled] = per_step[-1]
+            if not enabled:
+                trainer.save(f"{tmp}/pointcloud.npz")
+            del trainer, model
+
+        # (e) registration_model, then a pair registered through cli/register
+        net = resolve_registration_model(load_model(f"{tmp}/pointcloud.npz", device="cuda"))
+        log(f"registration_model of the point-cloud checkpoint: {type(net).__name__} "
+            f"{net.inshape}, bidir {net.bidir}, {sum(p.numel() for p in net.parameters())} "
+            f"params")
+        reset_launches()
+        t0 = time.perf_counter()
+        register_cli.main(["--moving", f"{tmp}/subject.npz", "--fixed", f"{tmp}/atlas.npz",
+                           "--model", f"{tmp}/pointcloud.npz", "--moved", f"{tmp}/moved.nii",
+                           "--warp", f"{tmp}/warp.nii"])
+        warp = load_volfile(f"{tmp}/warp.nii")
+        moved = load_volfile(f"{tmp}/moved.nii")
+        log(f"cli/register with the point-cloud checkpoint: {time.perf_counter() - t0:.2f} s, "
+            f"launches {read_launches()}, warp {warp.shape}, max|warp| "
+            f"{np.abs(warp).max():.3f} voxels")
+        if warp.shape != (*INSHAPE, 3) or moved.shape != INSHAPE or \
+                not (np.isfinite(warp).all() and np.isfinite(moved).all()) or \
+                read_launches()["fwd"] == 0:
+            raise AssertionError("cli/register of the point-cloud checkpoint failed")
+    return per_mode[False], per_mode[True]
+
+
+def cached_dispatch_check(smi):
+    """Phase 6b: fit_cached_pairs over DISPATCH_STEPS-step dispatches of
+    the default recipe against single steps on the same picks, from the
+    same weights, at full width; then phase 4's step with and without the
+    rematerialised integration. Returns the launch counts of a dispatch's
+    step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    data = torch.cat([moving, fixed, moving.flip(1), fixed.flip(2)])
+    log(f"volume stack on the card: {tuple(data.shape)}, "
+        f"{data.numel() * data.element_size() / 2 ** 20:.1f} MiB")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for k in (1, DISPATCH_STEPS, 1):  # the first run warms the card up
+            model, terms = default_recipe(INSHAPE, FLOW_STD)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.fit_cached_pairs(
+                data, epochs=DISPATCH_STEPS // k, steps_per_epoch=k, steps_per_dispatch=k,
+                seed=SEED, log_fn=lambda _: None)
+            torch.cuda.synchronize()
+            runs[k] = dict(s=(time.perf_counter() - t0) / DISPATCH_STEPS, metrics=metrics,
+                           fetches=trainer.metric_fetches, launches=read_launches(),
+                           params={n: p.detach().clone()
+                                   for n, p in trainer.model.named_parameters()})
+            del trainer, model
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    one, many = runs[1], runs[DISPATCH_STEPS]
+    equal = all(torch.equal(one["params"][n], p) for n, p in many["params"].items())
+    worst = max(((one["params"][n] - p).abs().max() / p.abs().max()).item()
+                for n, p in many["params"].items())
+    log(f"fit_cached_pairs, {DISPATCH_STEPS} steps from the same weights on the same picks: "
+        f"K = {DISPATCH_STEPS} against K = 1 params bit-equal {equal} (cudnn.deterministic), "
+        f"largest difference {worst:.3e} of a tensor's largest magnitude (tol {DISPATCH_RTOL})")
+    log(f"host metric fetches: {many['fetches']} for one dispatch of {DISPATCH_STEPS} steps, "
+        f"{one['fetches']} for {DISPATCH_STEPS} single steps; dispatch-mean metrics "
+        f"{json.dumps(many['metrics'])}, the last single step's {json.dumps(one['metrics'])}")
+    log(f"seconds per step, {INSHAPE}, float32, cuDNN: K = 1 {one['s']:.4f}, "
+        f"K = {DISPATCH_STEPS} {many['s']:.4f} (launches per {DISPATCH_STEPS} steps "
+        f"{many['launches']}); {smi}")
+    if not (equal or worst <= DISPATCH_RTOL):
+        raise AssertionError("the dispatched steps differ from single steps")
+    if many["fetches"] != 1 or one["fetches"] != DISPATCH_STEPS:
+        raise AssertionError(f"metric fetches {many['fetches']} and {one['fetches']}")
+    if many["launches"]["fwd"] == 0 or many["launches"]["bwd"] == 0:
+        raise AssertionError(f"the dispatch launched no warp kernel: {many['launches']}")
+    launches = {k: v // DISPATCH_STEPS for k, v in many["launches"].items()}
+
+    # phase 4's step with and without the rematerialised integration: the
+    # gradients bit-equal (cudnn.deterministic), memory and time per step
+    results = {}
+    for remat in (True, False):
+        with integration_remat(remat):
+            torch.backends.cudnn.deterministic = True
+            try:
+                loss, grads, step_launches = one_step_grads(INSHAPE, "cuda", moving, fixed,
+                                                            FLOW_STD)
+            finally:
+                torch.backends.cudnn.deterministic = saved[0]
+            model, terms = default_recipe(INSHAPE, FLOW_STD)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+            trainer.train_step((moving, fixed), (fixed, zero))["loss"].item()  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            step_s = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                trainer.train_step((moving, fixed), (fixed, zero))["loss"].item()
+                step_s.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            results[remat] = (loss, grads)
+            log(f"phase 4 step, integration remat={remat}: " + ", ".join(
+                f"{x:.4f}" for x in step_s) + f" s/step, peak memory allocated {peak:.3f} GiB, "
+                f"launches {step_launches}; {smi}")
+            del trainer, model
+    same = results[True][0] == results[False][0] and all(
+        torch.equal(results[True][1][n], g) for n, g in results[False][1].items())
+    log(f"remat against stored integration: loss and {len(results[True][1])} gradients "
+        f"bit-equal {same}")
+    if not same:
+        raise AssertionError("the rematerialised integration changed the gradients")
+    return launches
+
+
+def nd_and_res_check(smi):
+    """Phase 6c: a 2-D VxmDense on the pair's middle slice, card against
+    CPU, and a 3-D do_res VxmDense with a tanh final activation through the
+    conv kernel against cuDNN mode. Returns the launches of a 2-D step and
+    of a do_res register call with the conv kernel."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cpu")
+    mid = INSHAPE[0] // 2
+    pair2 = (moving[:, mid].contiguous(), fixed[:, mid].contiguous())
+    shape2 = INSHAPE[1:]
+
+    def recipe2(inshape, flow_std=None):
+        model = VxmDense(inshape, int_steps=7, int_resolution=2,
+                         generator=torch.Generator().manual_seed(SEED))
+        if flow_std is not None:
+            with torch.no_grad():
+                model.flow.weight.normal_(0.0, 3 ** 0.5 * flow_std,
+                                          generator=torch.Generator().manual_seed(SEED + 1))
+        terms = [LossTerm("y_source", losses.MSE(1.0).loss, weight=1.0, target_index=0),
+                 LossTerm("reg", losses.Grad("l2", loss_mult=2).loss, weight=0.01,
+                          target_index=1, name="grad")]
+        return model, terms
+
+    zero2 = torch.zeros((1, *shape2, 2))
+    batch2 = ((pair2[0], pair2[1]), (pair2[1], zero2))
+    loss_c, grads_c, launches2 = recipe_step_grads(recipe2, shape2, "cuda", batch2, FLOW_STD)
+    loss_cpu, grads_cpu, _ = recipe_step_grads(recipe2, shape2, "cpu", batch2, FLOW_STD)
+    log(f"2-D VxmDense {shape2}: one step's launches {launches2}")
+    compare_grads(f"2-D GPU vs CPU, {shape2}", loss_c, grads_c, loss_cpu, grads_cpu,
+                  TRAIN_GPU_VS_CPU_RTOL)
+    if any(launches2.values()):
+        raise AssertionError(f"the 2-D step launched a kernel: {launches2}")
+    out = {}
+    for device in ("cuda", "cpu"):
+        model, terms = recipe2(shape2, FLOW_STD)
+        trainer = Trainer(model, terms, lr=1e-4, device=device)
+        inputs = tuple(a.to(device) for a in batch2[0])
+        targets = tuple(a.to(device) for a in batch2[1])
+        t0 = time.perf_counter()
+        step_losses = [trainer.train_step(inputs, targets)["loss"].item() for _ in range(3)]
+        step_s = time.perf_counter() - t0
+        reset_launches()
+        moved, warp = build_register_fn(trainer.model.eval())(*inputs)
+        out[device] = (step_losses, moved.cpu(), warp.cpu(), read_launches())
+        log(f"2-D VxmDense on {device}: 3 steps {step_s:.3f} s, losses " + ", ".join(
+            f"{x:.8f}" for x in step_losses) + f"; register call launches {out[device][3]}")
+    losses_c, losses_cpu = out["cuda"][0], out["cpu"][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_c, losses_cpu))
+    flow_err, _ = max_and_mean_abs(out["cuda"][2], out["cpu"][2])
+    image_err, _ = max_and_mean_abs(out["cuda"][1], out["cpu"][1])
+    log(f"2-D after 3 steps, GPU vs CPU: losses rel {rel:.3e} (tol {TRAIN_GPU_VS_CPU_RTOL}), "
+        f"pos_flow max abs err {flow_err:.3e} (tol {FLOW_TOL}), y_source {image_err:.3e} "
+        f"(tol {IMAGE_TOL}); max|warp| {out['cuda'][2].abs().max().item():.3f}")
+    if not (losses_c[-1] < losses_c[0] and rel <= TRAIN_GPU_VS_CPU_RTOL
+            and flow_err <= FLOW_TOL and image_err <= IMAGE_TOL):
+        raise AssertionError("the 2-D model disagrees on the card or did not learn")
+    if any(out["cuda"][3].values()):
+        raise AssertionError(f"the 2-D register call launched a kernel: {out['cuda'][3]}")
+
+    # a do_res model with a tanh final activation at full width: every block
+    # adds its residual, so the conv kernel runs with the activation off
+    moving, fixed = moving.cuda(), fixed.cuda()
+    act_off = []  # per conv kernel launch: whether its activation was off
+    original = conv3._conv3_cuda
+
+    def spy(x, kernel, bias, act_slope, *args):
+        act_off.append(act_slope is None)
+        return original(x, kernel, bias, act_slope, *args)
+
+    results, res_launches = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        for enabled in (True, False):
+            with conv_kernel_mode(enabled), full_float32():
+                model = VxmDense(INSHAPE, do_res=True, final_activation_function="tanh",
+                                 dtype=dtype, generator=torch.Generator().manual_seed(SEED))
+                with torch.no_grad():
+                    model.flow.weight.normal_(0.0, FLOW_STD,
+                                              generator=torch.Generator().manual_seed(SEED + 1))
+                register = build_register_fn(model.cuda().eval())
+                act_off.clear()
+                reset_launches()
+                conv3._conv3_cuda = spy
+                try:
+                    t0 = time.perf_counter()
+                    results[dtype, enabled] = register(moving, fixed)
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t0
+                finally:
+                    conv3._conv3_cuda = original
+                launches = read_launches()
+                log(f"do_res + tanh VxmDense, {str(dtype).split('.')[1]}, "
+                    f"{'conv kernel' if enabled else 'cuDNN'}: {first_s:.3f} s, launches "
+                    f"{launches}, conv launches with the activation off {sum(act_off)} of "
+                    f"{len(act_off)}")
+                expected = len(UNET_CONVS) if enabled else 0
+                if launches["conv"] != expected or sum(act_off) != expected:
+                    raise AssertionError(f"expected {expected} conv launches, all with the "
+                                         f"activation off: {launches}, {act_off}")
+                if dtype == torch.bfloat16 and enabled:
+                    res_launches = launches
+                del model, register
+    # phase 3b's limits: float32, kernel against cuDNN; bfloat16, those of
+    # bfloat16 against float32, since in bfloat16 the two modes round in
+    # other places (the kernel once after the bias where the JAX package's
+    # kernel takes a shape, cuDNN mode after the conv and again after the
+    # bias, as XLA's conv does)
+    for dtype, flow_tol, image_tol in ((torch.float32, FLOW_TOL, IMAGE_TOL),
+                                       (torch.bfloat16, BF16_VS_F32_FLOW_TOL,
+                                        BF16_VS_F32_IMAGE_TOL)):
+        (moved_k, warp_k), (moved_c, warp_c) = results[dtype, True], results[dtype, False]
+        flow_err, _ = max_and_mean_abs(warp_k, warp_c)
+        image_err, _ = max_and_mean_abs(moved_k, moved_c)
+        log(f"do_res + tanh, {str(dtype).split('.')[1]}, conv kernel vs cuDNN: pos_flow max abs "
+            f"err {flow_err:.3e} (tol {flow_tol}), y_source {image_err:.3e} (tol {image_tol}); "
+            f"max|warp| {warp_c.abs().max().item():.3f} voxels")
+        if not (flow_err <= flow_tol and image_err <= image_tol
+                and torch.isfinite(warp_k).all() and torch.isfinite(moved_k).all()):
+            raise AssertionError("the do_res model's conv-kernel run disagrees with cuDNN mode")
+    return launches2, res_launches
+
+
+
 def conv_library_times(model):
     """cuDNN's time for each 3x3x3 conv of the U-Net (the convs the Pallas
     conv kernel computes) at full width in bfloat16, forward and backward,
@@ -1577,11 +2021,27 @@ def main(argv=None) -> int:
     warp_ops_check(np.random.default_rng(SEED + 8))
     log(f"phase 5b: {time.perf_counter() - t:.2f} s")
 
+    t = phase("6. point-cloud semi-supervised training at full width")
+    point_launches, point_conv_launches = train_pointcloud(smi)
+    log(f"phase 6: {time.perf_counter() - t:.2f} s")
+
+    t = phase("6b. --cache-device and --steps-per-dispatch at full width; remat")
+    cached_launches = cached_dispatch_check(smi)
+    log(f"phase 6b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("6c. 2-D VxmDense; do_res with a final activation")
+    nd_launches, res_launches = nd_and_res_check(smi)
+    log(f"phase 6c: {time.perf_counter() - t:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
              "train_step_semisupervised": semi_launches,
-             "train_step_semisupervised_conv": semi_conv_launches}
+             "train_step_semisupervised_conv": semi_conv_launches,
+             "train_step_pointcloud": point_launches,
+             "train_step_pointcloud_conv": point_conv_launches,
+             "train_step_cached_dispatch": cached_launches,
+             "train_step_2d": nd_launches, "register_do_res_conv": res_launches}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -1590,7 +2050,7 @@ def main(argv=None) -> int:
         name="warp_bounded_fwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:269",
-        launches=semi_launches["fwd"],
+        launches=point_launches["fwd"],
         launches_by_path={path: n["fwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=serving["ms"], plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
@@ -1599,7 +2059,7 @@ def main(argv=None) -> int:
         name="warp_bounded_bwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:952",
-        launches=semi_launches["bwd"],
+        launches=point_launches["bwd"],
         launches_by_path={path: n["bwd"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=serving_bwd["ms"], plain_ms=serving_bwd["plain_ms"],
@@ -1610,7 +2070,7 @@ def main(argv=None) -> int:
         # float32 train step
         name="conv3_fwd", route="cuda", source="voxelmorph_tpu_torch/csrc/conv3.cu",
         replaces="voxelmorph_tpu/ops/pallas_conv.py:124",
-        launches=semi_conv_launches["conv"],
+        launches=point_conv_launches["conv"],
         launches_by_path={path: n["conv"] for path, n in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in conv_rows),
         max_err_over_tol=max(r["max_err_over_tol"] for r in conv_rows),

@@ -303,9 +303,8 @@ def test_registration_model_extracts_the_vxm_dense(tmp_path):
     assert resolve_registration_model(model) is net
     retargeted = resolve_registration_model(model, (24, 16, 16))
     assert retargeted.inshape == (24, 16, 16)
-    point_cloud = type("VxmDenseSemiSupervisedPointCloud", (), {})()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registration_model(point_cloud)
+    with pytest.raises(ValueError, match="no registration extraction"):
+        registration_model(type("VxmDenseUnknown", (), {})())
 
     # the register CLI on a semi-supervised checkpoint of the JAX package,
     # against the JAX package's extracted net
@@ -373,8 +372,12 @@ def test_cli_trains_then_serves(tmp_path, capsys):
                             "--device", "cpu"])
     assert len(scores) == 2 and all(0 < s <= 1 for s in scores)
 
-    with pytest.raises(NotImplementedError, match="--cache-device"):
-        semi_cli.main([*args, "--cache-device", "--device", "cpu"])
+    # the device-cached generator: scan-to-scan on npz files only
+    cached = [str(tmp_path / "cached") if a == str(models) else a for a in args]
+    semi_cli.main([*cached, "--cache-device", "--device", "cpu"])
+    assert "epoch 2/2" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="--cache-device"):
+        semi_cli.main([*cached, "--cache-device", "--atlas", files[0], "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             semi_cli.main(args)

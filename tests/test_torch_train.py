@@ -294,8 +294,8 @@ def test_cli_train_then_register(tmp_path, capsys):
     assert np.abs(ref_warp).max() > 1e-3
 
 
-@pytest.mark.parametrize("flag", [["--spatial-shard"], ["--cache-device"],
-                                  ["--steps-per-dispatch", "4"], ["--num-processes", "2"]])
+@pytest.mark.parametrize("flag", [["--spatial-shard"], ["--coordinator", "localhost:1"],
+                                  ["--process-id", "1"], ["--num-processes", "2"]])
 def test_cli_train_rejects_unported_flags(tmp_path, flag):
     _blob_files(tmp_path, n=2)
     with pytest.raises(NotImplementedError, match=flag[0]):

@@ -6,10 +6,14 @@ The PyTorch counterpart of ``scripts/train.py``, with its flags:
 
 scan-to-atlas when ``--atlas`` is given, else scan-to-scan; an MSE or NCC
 image loss plus Grad-l2 or, with ``--use-probs``, KL; ``--bidir`` halves the
-image weights. It runs on the GPU unless ``--device cpu`` is given. The JAX
-script's multi-device and device-cached options (``--spatial-shard``,
-``--coordinator``, ``--num-processes``, ``--process-id``,
-``--steps-per-dispatch``, ``--cache-device``) are not ported and raise.
+image weights. Volumes of 1, 2 or 3 dimensions train a VxmDense of their
+dimensionality. ``--cache-device`` loads the training set onto the device
+once and draws pairs there; with ``--steps-per-dispatch`` K, each K steps'
+metrics stay on the device until one fetch of their mean
+(``Trainer.fit_cached_pairs``). It runs on the GPU unless ``--device cpu`` is
+given. The JAX script's multi-device options (``--spatial-shard``,
+``--coordinator``, ``--num-processes``, ``--process-id``) are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -45,8 +49,12 @@ def parse_args(argv=None):
     parser.add_argument('--clip-grad', type=float,
                         help='optional global-norm gradient clip')
     parser.add_argument('--spatial-shard', action='store_true', help='not ported (raises)')
-    parser.add_argument('--steps-per-dispatch', type=int, default=None, help='not ported (raises)')
-    parser.add_argument('--cache-device', action='store_true', help='not ported (raises)')
+    parser.add_argument('--steps-per-dispatch', type=int, default=None,
+                        help='with --cache-device: train steps per dispatch, whose metrics '
+                             'are read once, as their mean (0 = whole epoch)')
+    parser.add_argument('--cache-device', action='store_true',
+                        help='preload the whole training set onto the device and draw pairs '
+                             'there (removes per-step host transfers)')
     parser.add_argument('--coordinator', help='not ported (raises)')
     parser.add_argument('--num-processes', type=int, default=1, help='not ported (raises if > 1)')
     parser.add_argument('--process-id', type=int, default=0, help='not ported (raises if > 0)')
@@ -83,27 +91,28 @@ def parse_args(argv=None):
 def _reject_unported(args):
     unported = [name for name, given in (
         ('--spatial-shard', args.spatial_shard),
-        ('--steps-per-dispatch', args.steps_per_dispatch is not None),
-        ('--cache-device', args.cache_device),
         ('--coordinator', args.coordinator is not None),
         ('--num-processes', args.num_processes != 1),
         ('--process-id', args.process_id != 0)) if given]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: multi-device and device-cached training are not "
-            "ported to voxelmorph_tpu_torch yet")
+            f"{', '.join(unported)}: multi-device training is not ported to "
+            "voxelmorph_tpu_torch yet")
 
 
 def main(argv=None):
     args = parse_args(argv)
     _reject_unported(args)
+    if args.steps_per_dispatch is not None and not args.cache_device:
+        raise SystemExit('--steps-per-dispatch requires --cache-device')
 
     import torch
 
     from .. import generators, losses, resolve_device
     from ..models.vxm import VxmDense
     from ..py.utils import load_volfile, read_file_list
-    from ..training import LossTerm, Trainer, init_or_resume, resolve_dtype
+    from ..training import (LossTerm, Trainer, device_cached_pair_generator, init_or_resume,
+                            load_volume_stack, resolve_dtype)
 
     device = resolve_device(args.device)
     train_files = read_file_list(args.img_list, prefix=args.img_prefix, suffix=args.img_suffix)
@@ -111,9 +120,20 @@ def main(argv=None):
         raise ValueError('Could not find any training data.')
 
     add_feat_axis = not args.multichannel
+    atlas = None
     if args.atlas:
         atlas = load_volfile(args.atlas, np_var='vol', add_batch_axis=True,
                              add_feat_axis=add_feat_axis)
+
+    def cached_generator(start_step=0):
+        return device_cached_pair_generator(
+            train_files, batch_size=args.batch_size, bidir=args.bidir,
+            atlas=None if atlas is None else atlas[0], add_feat_axis=add_feat_axis,
+            start_step=start_step, device=device)
+
+    if args.cache_device:
+        generator = cached_generator()
+    elif args.atlas:
         generator = generators.scan_to_atlas(train_files, atlas, batch_size=args.batch_size,
                                              bidir=args.bidir, add_feat_axis=add_feat_axis)
     else:
@@ -161,6 +181,20 @@ def main(argv=None):
     trainer = Trainer(model, terms, lr=args.lr, clip_norm=args.clip_grad, device=device)
     initial_epoch = init_or_resume(trainer, args.load_weights, args.model_dir,
                                    args.initial_epoch)
+    # +1: the shape probe above drew step 0 of the cached stream, so epoch e
+    # trains on steps e * S + 1 .. (e + 1) * S, on either cached path
+    start_step = initial_epoch * args.steps_per_epoch + 1
+    if args.steps_per_dispatch is not None:
+        trainer.fit_cached_pairs(
+            load_volume_stack(train_files, add_feat_axis=add_feat_axis, device=device),
+            epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
+            steps_per_dispatch=args.steps_per_dispatch, batch_size=args.batch_size,
+            bidir=args.bidir, atlas=None if atlas is None else atlas[0],
+            start_step=start_step, initial_epoch=initial_epoch, model_dir=args.model_dir,
+            save_freq_epochs=args.save_freq)
+        return
+    if args.cache_device and initial_epoch:
+        generator = cached_generator(start_step)
     trainer.fit(generator, epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
                 initial_epoch=initial_epoch, model_dir=args.model_dir,
                 save_freq_epochs=args.save_freq)

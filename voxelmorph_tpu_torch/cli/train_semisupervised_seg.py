@@ -10,8 +10,10 @@ flags:
 Images and segmentations come from the same list, with their own prefixes
 and suffixes; the same path for both requires npz files that carry 'vol' and
 'seg'. ``--atlas`` (an npz with 'vol' and 'seg') registers every scan to it.
-It runs on the GPU unless ``--device cpu`` is given. The JAX script's
-device-cached generator (``--cache-device``) is not ported and raises.
+``--cache-device`` (scan-to-scan, npz files with 'vol' and 'seg') holds the
+volumes and integer segmentations on the device and one-hot encodes the
+picked ones there (``training.device_cached_semisupervised_generator``). It
+runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -46,15 +48,14 @@ def parse_args(argv=None):
                         help='U-Net compute dtype (params, losses and flow integration stay float32)')
     parser.add_argument('--grad-loss-weight', type=float, default=0.01)
     parser.add_argument('--dice-loss-weight', type=float, default=0.01)
-    parser.add_argument('--cache-device', action='store_true', help='not ported (raises)')
+    parser.add_argument('--cache-device', action='store_true',
+                        help='hold the training set on the device and one-hot encode the '
+                             'picked segmentations there')
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.cache_device:
-        raise NotImplementedError(
-            "--cache-device: device-cached training is not ported to voxelmorph_tpu_torch yet")
 
     import numpy as np
     import torch
@@ -62,7 +63,8 @@ def main(argv=None):
     from .. import generators, losses, resolve_device
     from ..models.vxm import VxmDenseSemiSupervisedSeg
     from ..py.utils import read_file_list
-    from ..training import LossTerm, Trainer, init_or_resume, resolve_dtype
+    from ..training import (LossTerm, Trainer, device_cached_semisupervised_generator,
+                            init_or_resume, resolve_dtype)
 
     device = resolve_device(args.device)
     train_imgs = read_file_list(args.img_list, prefix=args.img_prefix, suffix=args.img_suffix)
@@ -77,8 +79,15 @@ def main(argv=None):
     train_segs = read_file_list(args.img_list, prefix=args.seg_prefix, suffix=args.seg_suffix)
 
     train_labels = np.load(args.labels)
-    generator = generators.semisupervised(train_imgs, train_segs, labels=train_labels,
-                                          atlas_file=args.atlas)
+    if args.cache_device:
+        if args.atlas or train_segs != train_imgs:
+            sys.exit('Error: --cache-device currently requires scan-to-scan '
+                     'training with vol+seg npz files.')
+        generator = device_cached_semisupervised_generator(train_imgs, labels=train_labels,
+                                                           device=device)
+    else:
+        generator = generators.semisupervised(train_imgs, train_segs, labels=train_labels,
+                                              atlas_file=args.atlas)
     sample = next(generator)
     inshape = sample[0][0].shape[1:-1]
 
@@ -113,6 +122,12 @@ def main(argv=None):
     trainer = Trainer(model, terms, lr=args.lr, device=device)
     initial_epoch = init_or_resume(trainer, args.load_weights, args.model_dir,
                                    args.initial_epoch)
+    if args.cache_device and initial_epoch:
+        # restart the stateless stream just past the shape probe's step 0
+        # (see cli/train.py), so a resume replays the uninterrupted sequence
+        generator = device_cached_semisupervised_generator(
+            train_imgs, labels=train_labels,
+            start_step=initial_epoch * args.steps_per_epoch + 1, device=device)
     trainer.fit(generator, epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
                 initial_epoch=initial_epoch, model_dir=args.model_dir, save_freq_epochs=10)
 

@@ -17,13 +17,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .vxm import VxmDense, VxmDenseSemiSupervisedSeg
+from .vxm import VxmDense, VxmDenseSemiSupervisedPointCloud, VxmDenseSemiSupervisedSeg
 
 __all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "load_model",
            "save_model"]
 
 # the model classes a checkpoint may name, by the JAX class name
-_MODELS = {cls.__name__: cls for cls in (VxmDense, VxmDenseSemiSupervisedSeg)}
+_MODELS = {cls.__name__: cls for cls in (VxmDense, VxmDenseSemiSupervisedSeg,
+                                          VxmDenseSemiSupervisedPointCloud)}
 
 _SEP = "||"
 _EXTRA = "__extra__"
@@ -136,8 +137,9 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def load_model(path: str, device="cuda", **overrides) -> torch.nn.Module:
-    """Rebuild a checkpoint's model (VxmDense or VxmDenseSemiSupervisedSeg)
-    with its weights, on ``device``, in eval mode.
+    """Rebuild a checkpoint's model (VxmDense, VxmDenseSemiSupervisedSeg or
+    VxmDenseSemiSupervisedPointCloud) with its weights, on ``device``, in
+    eval mode.
 
     ``overrides`` replace config fields (for example ``dtype=torch.float32``).
     """

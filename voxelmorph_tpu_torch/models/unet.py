@@ -3,9 +3,13 @@
 Encoder of conv(k3) + LeakyReLU(0.2) blocks with max-pool downsampling,
 decoder with nearest upsampling and skip concatenation, then the surplus
 full-resolution "final convs"; ``nb_upsample_skips`` emits the output at
-reduced resolution. Module names follow the JAX package's parameter paths
-(``enc_conv_0_0``, ``dec_conv_3_0``, ``dec_final_conv_0``, each with a
-``conv``), so a JAX checkpoint maps onto the state dict key for key.
+reduced resolution. ``do_res`` adds each block's input (through a ``resfix``
+conv where the widths differ) before the activation, and
+``final_activation_function`` (a ``flax.linen`` activation's name) replaces
+the last block's LeakyReLU, as in the JAX package. Module names follow the
+JAX package's parameter paths (``enc_conv_0_0``, ``dec_conv_3_0``,
+``dec_final_conv_0``, each with a ``conv``, and a ``resfix``), so a JAX
+checkpoint maps onto the state dict key for key.
 
 Inside the network tensors are channels-first ``(B, C, *S)``, the layout of
 ``torch.nn.functional.conv3d``. Parameters are float32; ``dtype`` is the
@@ -33,7 +37,21 @@ from torch import nn
 from ..ops import conv3
 from ..py.utils import default_unet_features
 
-__all__ = ["Unet", "ConvBlock", "build_feature_lists", "he_normal_", "max_pool"]
+__all__ = ["Unet", "ConvBlock", "build_feature_lists", "he_normal_", "max_pool",
+           "ACTIVATIONS"]
+
+# flax.linen's activations by name, as torch functions of channels-first
+# tensors (flax's defaults: gelu's tanh approximation, leaky_relu's slope
+# 0.01; softmax and its log over the channel axis)
+ACTIVATIONS = {
+    "relu": F.relu, "relu6": F.relu6, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "elu": F.elu, "selu": F.selu, "celu": F.celu, "silu": F.silu, "swish": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"), "softplus": F.softplus,
+    "soft_sign": F.softsign, "log_sigmoid": F.logsigmoid,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01), "hard_tanh": F.hardtanh,
+    "hard_sigmoid": F.hardsigmoid, "hard_silu": F.hardswish, "hard_swish": F.hardswish,
+    "softmax": lambda x: F.softmax(x, dim=1), "log_softmax": lambda x: F.log_softmax(x, dim=1),
+}
 
 
 def build_feature_lists(nb_features=None, nb_levels=None, feat_mult=1,
@@ -67,48 +85,72 @@ def he_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None
 
 
 class ConvBlock(nn.Module):
-    """conv(k3, SAME) + LeakyReLU(0.2), computed in ``dtype``.
+    """conv(k3, SAME) [+ residual] + LeakyReLU(0.2), computed in ``dtype``.
 
     The dispatch of the JAX package's ``ConvBlock``: with
     ``conv3.pallas_conv_enabled()`` a 3-D block is ``conv3.conv3_same_cf``
-    with the activation fused (``PallasConv3``), rounded in the order the JAX
-    package gives that shape (``conv3.jax_kernel_takes``); else with
-    ``conv3.xla_dw_einsum_enabled()`` it is ``conv3.conv3_same_lean_dw``
-    (``LeanDwConv``); else cuDNN, where the bias is added after the
-    convolution's output is rounded to ``dtype``, as flax's Conv does, so that
-    a bfloat16 model rounds where the JAX package's does. The parameters are
-    the same in every case.
+    (``PallasConv3``), rounded in the order the JAX package gives that shape
+    (``conv3.jax_kernel_takes``); else with ``conv3.xla_dw_einsum_enabled()``
+    it is ``conv3.conv3_same_lean_dw`` (``LeanDwConv``); else cuDNN, where
+    the bias is added after the convolution's output is rounded to
+    ``dtype``, as flax's Conv does, so that a bfloat16 model rounds where the
+    JAX package's does. The first two fuse the activation into the conv
+    when the block has one and no residual; otherwise the residual (the
+    input, or its ``resfix`` conv on cuDNN where the widths differ) is added
+    to the conv's output and the activation follows, in ``dtype``, as in
+    JAX. The parameters are the same in every case.
     """
 
     def __init__(self, in_features: int, features: int, ndims: int = 3,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+                 dtype=torch.float32, do_res: bool = False, include_activation: bool = True,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.ndims = ndims
         self.dtype = dtype
-        self.conv = getattr(nn, f"Conv{ndims}d")(in_features, features, 3, padding=1)
+        self.do_res = do_res
+        self.include_activation = include_activation
+        conv_cls = getattr(nn, f"Conv{ndims}d")
+        self.conv = conv_cls(in_features, features, 3, padding=1)
         # flax's init: he-normal kernel, zero bias
         he_normal_(self.conv.weight, generator)
         nn.init.zeros_(self.conv.bias)
+        if do_res and features != in_features:
+            self.resfix = conv_cls(in_features, features, 3, padding=1)
+            he_normal_(self.resfix.weight, generator)
+            nn.init.zeros_(self.resfix.bias)
 
     def _jax_kernel(self) -> torch.Tensor:
         """The weight in the JAX layout ``(*k, ci, co)``, in ``dtype``."""
         return self.conv.weight.permute(*range(2, self.ndims + 2), 1, 0).to(self.dtype)
 
+    def _flax_conv(self, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """flax's Conv on cuDNN: the convolution in ``dtype``, then the bias."""
+        out = getattr(F, f"conv{self.ndims}d")(x, conv.weight.to(self.dtype), padding=1)
+        return out + conv.bias.to(self.dtype).view(-1, *([1] * self.ndims))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        bias = self.conv.bias.to(self.dtype)
+        fused = self.include_activation and not self.do_res
+        slope = 0.2 if fused else None
         if conv3.pallas_conv_enabled() and self.ndims == 3 and x.dim() == 5:
             nbytes = x.element_size()
             takes = conv3.jax_kernel_takes(x.shape[1], self.conv.out_channels, *x.shape[2:],
                                            nbytes, nbytes)
-            return conv3.conv3_same_cf(x, self._jax_kernel(), bias, act_slope=0.2,
-                                       round_conv_first=not takes)
-        if conv3.xla_dw_einsum_enabled():
-            return conv3.conv3_same_lean_dw(x.movedim(1, -1), self._jax_kernel(), bias,
-                                            0.2).movedim(-1, 1)
-        conv = getattr(F, f"conv{self.ndims}d")
-        out = conv(x, self.conv.weight.to(self.dtype), padding=1)
-        return F.leaky_relu(out + bias.view(-1, *([1] * self.ndims)), 0.2)
+            out = conv3.conv3_same_cf(x, self._jax_kernel(), self.conv.bias.to(self.dtype),
+                                      act_slope=slope, round_conv_first=not takes)
+        elif conv3.xla_dw_einsum_enabled():
+            out = conv3.conv3_same_lean_dw(x.movedim(1, -1), self._jax_kernel(),
+                                           self.conv.bias.to(self.dtype), slope).movedim(-1, 1)
+        else:
+            out = self._flax_conv(self.conv, x)
+            fused = False
+        if fused:
+            return out
+        if self.do_res:
+            out = out + (self._flax_conv(self.resfix, x) if hasattr(self, "resfix") else x)
+        if self.include_activation:
+            out = F.leaky_relu(out, 0.2)
+        return out
 
 
 def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int,
@@ -184,15 +226,20 @@ class Unet(nn.Module):
 
     def __init__(self, ndims: int, in_features: int, nb_features=None,
                  nb_levels: Optional[int] = None, max_pool=2, feat_mult: int = 1,
-                 nb_conv_per_level: int = 1, nb_upsample_skips: int = 0,
+                 nb_conv_per_level: int = 1, do_res: bool = False, nb_upsample_skips: int = 0,
+                 final_activation_function: Optional[str] = None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
+        if final_activation_function is not None and \
+                final_activation_function not in ACTIVATIONS:
+            raise ValueError(f"unknown final_activation_function '{final_activation_function}'")
         enc_nf, dec_nf = build_feature_lists(nb_features, nb_levels, feat_mult,
                                              nb_conv_per_level)
         self.ndims = ndims
         self.dtype = dtype
         self.nb_conv_per_level = nb_conv_per_level
         self.nb_upsample_skips = nb_upsample_skips
+        self.final_activation_function = final_activation_function
         nb_dec_convs = len(enc_nf)
         self.final_convs = dec_nf[nb_dec_convs:]
         dec_nf = dec_nf[:nb_dec_convs]
@@ -200,10 +247,15 @@ class Unet(nn.Module):
         self.max_pool = ([max_pool] * self.nb_levels if isinstance(max_pool, int)
                          else list(max_pool))
 
-        def block(name, cin, nf):
-            self.add_module(name, ConvBlock(cin, nf, ndims, dtype=dtype, generator=generator))
+        def block(name, cin, nf, include_activation=True):
+            self.add_module(name, ConvBlock(cin, nf, ndims, dtype=dtype, do_res=do_res,
+                                            include_activation=include_activation,
+                                            generator=generator))
             return nf
 
+        # a final activation replaces the LeakyReLU of the last block: the
+        # last final conv, or the last decoder conv when there is none
+        final_act = final_activation_function is not None
         ch, skips = in_features, []
         for level in range(self.nb_levels - 1):
             for conv in range(nb_conv_per_level):
@@ -213,12 +265,15 @@ class Unet(nn.Module):
         for level in range(self.nb_levels - 1):
             real_level = self.nb_levels - level - 2
             for conv in range(nb_conv_per_level):
+                last = (final_act and not self.final_convs and level == self.nb_levels - 2
+                        and conv == nb_conv_per_level - 1)
                 ch = block(f"dec_conv_{real_level}_{conv}", ch,
-                           dec_nf[level * nb_conv_per_level + conv])
+                           dec_nf[level * nb_conv_per_level + conv], not last)
             if level < self.nb_levels - 1 - nb_upsample_skips:
                 ch += skips.pop()
         for num, nf in enumerate(self.final_convs):
-            ch = block(f"dec_final_conv_{num}", ch, nf)
+            ch = block(f"dec_final_conv_{num}", ch, nf,
+                       not (final_act and num == len(self.final_convs) - 1))
         self.out_features = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -241,4 +296,6 @@ class Unet(nn.Module):
                 last = torch.cat([last, enc_layers.pop()], dim=1)
         for num in range(len(self.final_convs)):
             last = getattr(self, f"dec_final_conv_{num}")(last)
+        if self.final_activation_function is not None:
+            last = ACTIVATIONS[self.final_activation_function](last)
         return last

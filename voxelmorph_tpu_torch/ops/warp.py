@@ -154,27 +154,33 @@ def transform_batched(vols: torch.Tensor, shifts: torch.Tensor, interp_method: s
         window_halo, shifts.abs().max().item())
 
 
-def integrate_vec_batched(vec: torch.Tensor, nb_steps: int = 7,
+def integrate_vec_batched(vec: torch.Tensor, nb_steps: int = 7, remat: bool = True,
                           window_halo=DEFAULT_WINDOW_HALO, return_root_steps: int = 0):
     """Scaling and squaring of a batch of stationary velocity fields
     ``(B, *S, N)``: ``v /= 2**nb_steps``, then ``nb_steps`` times
-    ``v <- v + v o (id + v)``.
+    ``v <- v + v o (id + v)``, each warp on its own tier (bounded kernel or
+    gather) for the whole batch.
 
-    With ``return_root_steps = s > 0`` it also returns ``root``, the field
-    after ``nb_steps - s`` squarings: the 2^s-th root of the result (composed
-    with itself 2^s times it gives the result, up to interpolation error),
-    as ``(final, root)``; see ``phase_warp_batched``.
+    ``remat`` recomputes each squaring step in the backward pass instead of
+    keeping its intermediates (``_rematerialised``), as the JAX package's
+    ``jax.checkpoint`` does: the recomputation sees the same field, so it
+    takes the same tier. With ``return_root_steps = s > 0`` it also returns
+    ``root``, the field after ``nb_steps - s`` squarings: the 2^s-th root of
+    the result (composed with itself 2^s times it gives the result, up to
+    interpolation error), as ``(final, root)``; see ``phase_warp_batched``.
     """
     if nb_steps < 0:
         raise ValueError(f"nb_steps must be >= 0, got {nb_steps}")
     if not 0 <= return_root_steps <= nb_steps:
         raise ValueError(f"return_root_steps must be in [0, {nb_steps}], got {return_root_steps}")
+    step = _rematerialised(lambda v: v + transform_batched(v, v, window_halo=window_halo),
+                           remat)
     vec = vec / (2.0 ** nb_steps)
     root = vec
     for i in range(nb_steps):
         if i == nb_steps - return_root_steps:
             root = vec
-        vec = vec + transform_batched(vec, vec, window_halo=window_halo)
+        vec = step(vec)
     if return_root_steps:
         return vec, root
     return vec

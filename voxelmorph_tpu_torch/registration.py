@@ -1,7 +1,8 @@
 """Registration API: one call from an image pair to (moved image, warp).
 
 Counterpart of ``voxelmorph_tpu/registration.py`` for VxmDense models and
-the VxmDense inside a semi-supervised checkpoint.
+the VxmDense inside a semi-supervised (segmentation or point-cloud)
+checkpoint.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .models.vxm import VxmDense, VxmDenseSemiSupervisedSeg, registration_model
+from .models.vxm import (VxmDense, VxmDenseSemiSupervisedPointCloud, VxmDenseSemiSupervisedSeg,
+                         registration_model)
 from .ops import warp as warp_ops
 
 __all__ = ["enable_fast_warp", "resolve_registration_model", "build_register_fn",
@@ -40,13 +42,13 @@ def enable_fast_warp(model: VxmDense, phases: int = 2, halo: int = 2) -> VxmDens
 def resolve_registration_model(model, inshape: Optional[Sequence[int]] = None) -> VxmDense:
     """Return the net that registers images, re-targeted to ``inshape``.
 
-    A semi-supervised segmentation model registers through its inner
-    VxmDense (``models.vxm.registration_model``). VxmDense is fully
+    A semi-supervised segmentation or point-cloud model registers through
+    its inner VxmDense (``models.vxm.registration_model``). VxmDense is fully
     convolutional: ``inshape`` only sizes the svf and integration rescale
     grids, so a checkpoint trained at one resolution serves another with the
     same weights.
     """
-    if isinstance(model, VxmDenseSemiSupervisedSeg):
+    if isinstance(model, (VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud)):
         model = registration_model(model)[0]
     if not isinstance(model, VxmDense):
         raise NotImplementedError(f"{type(model).__name__} is not ported yet")
