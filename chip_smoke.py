@@ -31,12 +31,23 @@ Phases:
      and the input-gradient orientation, on channels-last inputs as the
      U-Net feeds them, bit-equal across two launches, with times beside the
      bound, the plain version and cuDNN's conv3d on the same inputs;
+  2e. the tiered warp's predicated kernels at each tier of {1, 2} at the
+     squaring shape, 1 to 4 channels: every branch launched with the
+     device's tier word into its own NaN-filled buffer, only the named one
+     writing, equal to the unpredicated kernel or the torch gather
+     (forward and dshift bit for bit, the gather's dvol within 1e-5);
+     transform_batched forward and backward through them, with its device
+     work counters; its time against the host-chosen call's, the time of a
+     launch that returns at once, and the gather kernels against the torch
+     gather and grid_sample;
   3. the serving path end to end: the committed full-width VxmDense
      checkpoint (160x192x224, bfloat16) registers a synthetic smooth pair
-     through build_register_fn; the kernel launch counts of that call must
-     be nonzero, and its outputs must agree with the port's own bfloat16
-     CPU run; then the same in float32 (TF32 off) against the port's own
-     CPU run, and the bfloat16 outputs against the float32 ones;
+     through build_register_fn; the work counters of that call must show a
+     bounded kernel running and each tiered warp running exactly one of its
+     branches (as in every path below that gates them), and its outputs
+     must agree with the port's own bfloat16 CPU run; then the same in
+     float32 (TF32 off) against the port's own CPU run, and the bfloat16
+     outputs against the float32 ones;
   3b. serving with the conv kernel (set_pallas_conv(True), the JAX
      package's VXM_PALLAS_CONV=1): 11 conv launches and no layout copy per
      register call, float32 kernel mode against float32 cuDNN mode, bfloat16
@@ -93,7 +104,21 @@ Phases:
      gradients and three steps and a register call, card against CPU, no
      kernel launched; a 3-D VxmDense with do_res and a tanh final activation
      at full width, bfloat16 and float32, conv kernel against cuDNN mode,
-     every conv launched with the activation off.
+     every conv launched with the activation off;
+  6d. Trainer.fit with prefetch and without, of the point-cloud recipe
+     from its generator on the card (on its own stream) and of cli/train's
+     default from scan_to_scan over npz files: the parameters bit-equal,
+     seconds per step of each, and the seconds of each part of one
+     point-cloud draw (components, blur, EDT, x2 zoom, point draws);
+  6e. the U-Net's per-block remat on and off in phase 4's step, cuDNN and
+     conv-kernel mode: gradients bit-equal (cudnn.deterministic), conv
+     launches, peak memory and seconds per step;
+  7. a full-width register call and one float32 train step of the default
+     recipe, the flow head redrawn until the warps take all three tiers
+     (VXM_WINDOW_HALO=2; the tier of each warp read from the work counters
+     around its launches), in cuDNN and conv-kernel mode, each under
+     torch.cuda.set_sync_debug_mode("error"): any host synchronisation in
+     them fails the run.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -130,6 +155,8 @@ from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
 from voxelmorph_tpu_torch.ops.interp import ndgrid, resize
 from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bwd,
                                                    warp_bounded_bwd_plain, windowed_transform)
+from voxelmorph_tpu_torch.ops.warp_gather import (launch_gather_bwd, launch_gather_fwd,
+                                                  warp_gather_bwd_plain, warp_gather_plain)
 from voxelmorph_tpu_torch.py.utils import load_volfile
 from voxelmorph_tpu_torch.registration import (build_register_fn, enable_fast_warp,
                                                resolve_registration_model)
@@ -246,6 +273,20 @@ UNET_CONVS = [(160, 192, 224, 2, 16), (80, 96, 112, 16, 32), (40, 48, 56, 32, 32
               (160, 192, 224, 32, 16), (160, 192, 224, 16, 16)]
 
 
+# conv launches of a train step in conv-kernel mode: the U-Net's 11 forward
+# convs, their recomputation in the backward (the per-block remat), and the
+# input gradients of all but the first
+TRAIN_STEP_CONVS = 3 * len(UNET_CONVS) - 1
+# the tiers {1, H} of the predicated-warp checks (phase 2e and phase 7):
+# with H = 2 a warp has three branches, the halo-1 and halo-2 bounded
+# kernels and the gather
+TIER_HALO = 2
+# the gather kernel's dvol against the torch gather's (index_put with
+# atomics on the card): the same float32 terms summed in other orders,
+# relative to the largest |dvol|
+GATHER_DVOL_RTOL = 1e-5
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -285,15 +326,43 @@ def full_float32():
 
 def reset_launches():
     warp_bounded.launches = warp_bounded_bwd.launches = conv3.conv3_same_cf.launches = 0
+    launch_gather_fwd.launches = launch_gather_bwd.launches = 0
     conv3.conv3_same_cf.layout_copies = 0
+    warp_bounded_ops.reset_work()
 
 
 def read_launches():
-    """Launches of each kernel since reset_launches, and the conv wrapper's
-    layout copies."""
+    """Launches of each kernel since reset_launches; of the warp kernels
+    also the launches that ran past their tier word (the device counters,
+    one fetch); and the conv wrapper's layout copies."""
+    work = warp_bounded_ops.read_work()
     return {"fwd": warp_bounded.launches, "bwd": warp_bounded_bwd.launches,
+            "gather_fwd": launch_gather_fwd.launches, "gather_bwd": launch_gather_bwd.launches,
+            "fwd_ran": work["warp_bounded_fwd"], "bwd_ran": work["warp_bounded_bwd"],
+            "gather_fwd_ran": work["warp_gather_fwd"],
+            "gather_bwd_ran": work["warp_gather_bwd"],
             "conv": conv3.conv3_same_cf.launches,
             "layout_copies": conv3.conv3_same_cf.layout_copies}
+
+
+def check_warp_work(counts, label, backward=True):
+    """Fail unless ``counts`` (read_launches) show the tiered warps of a run
+    doing their work: a bounded kernel ran past its tier word, and each
+    tiered warp ran exactly one of its branches (a warp launches the gather
+    kernel once, so the bounded and gather launches that ran add up to the
+    gather's launches); with ``backward`` the backward kernels too. The
+    launch counts alone cannot show this: every tiered warp launches every
+    branch."""
+    for bounded, gather in (("fwd", "gather_fwd"), ("bwd", "gather_bwd"))[:1 + backward]:
+        ran = counts[f"{bounded}_ran"], counts[f"{gather}_ran"]
+        if ran[0] == 0 or sum(ran) != counts[gather]:
+            raise AssertionError(f"{label}: of {counts[gather]} tiered warps {ran[0]} ran a "
+                                 f"bounded {bounded} kernel and {ran[1]} the gather: {counts}")
+
+
+def no_warp_launches(counts):
+    """True where ``counts`` (read_launches) hold no warp kernel launch."""
+    return not any(v for k, v in counts.items() if k not in ("conv", "layout_copies"))
 
 
 def tensor_core_instructions(name):
@@ -417,7 +486,7 @@ def compare_launch(lib, name, tensors, halo):
     fn.argtypes = warp_bounded_ops._ARGTYPES[name]
     fn.restype = ctypes.c_int
     B, D, H, W, C = tensors[0].shape
-    err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, halo,
+    err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, halo, None, 0, None,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} of another build failed to launch: CUDA error {err}")
@@ -581,8 +650,7 @@ def register_full_width(moving, fixed):
     first_s = time.perf_counter() - t0
     launches = read_launches()
     log(f"first call {first_s:.3f} s; kernel launches {launches}")
-    if launches["fwd"] == 0:
-        raise AssertionError("the serving path launched no warp_bounded kernel")
+    check_warp_work(launches, "the serving path", backward=False)
     if tuple(moved.shape) != (1, *INSHAPE, 1) or tuple(warp.shape) != (1, *INSHAPE, 3):
         raise AssertionError(f"shapes: moved {tuple(moved.shape)}, warp {tuple(warp.shape)}")
     if not (torch.isfinite(moved).all() and torch.isfinite(warp).all()):
@@ -627,13 +695,18 @@ def _register_f32_vs_cpu(moving, fixed):
     results = {}
     for device in ("cuda", "cpu"):
         model = load_model(str(CHECKPOINT), device=device, dtype=torch.float32)
-        warp_bounded.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         moved, warp = build_register_fn(model)(moving.to(device), fixed.to(device))
         if device == "cuda":
             torch.cuda.synchronize()
-        log(f"float32 on {device}: {time.perf_counter() - t0:.3f} s, "
-            f"warp_bounded launches {warp_bounded.launches}")
+        counts = read_launches()
+        log(f"float32 on {device}: {time.perf_counter() - t0:.3f} s, warp_bounded launches "
+            f"{counts['fwd']}, of which {counts['fwd_ran']} ran")
+        if device == "cuda":
+            check_warp_work(counts, "the float32 register call", backward=False)
+        elif not no_warp_launches(counts):
+            raise AssertionError(f"the CPU run launched warp kernels: {counts}")
         results[device] = (moved.cpu(), warp.cpu())
     flow_err = (results["cuda"][1] - results["cpu"][1]).abs().max().item()
     image_err = (results["cuda"][0] - results["cpu"][0]).abs().max().item()
@@ -665,9 +738,9 @@ def register_conv_kernel(moving, fixed):
         torch.cuda.synchronize()
         launches = read_launches()
         log(f"bfloat16 register call with the conv kernel: kernel launches {launches}")
-        if launches["conv"] != len(UNET_CONVS) or launches["fwd"] == 0:
-            raise AssertionError(f"expected {len(UNET_CONVS)} conv launches and warp launches, "
-                                 f"got {launches}")
+        if launches["conv"] != len(UNET_CONVS):
+            raise AssertionError(f"expected {len(UNET_CONVS)} conv launches, got {launches}")
+        check_warp_work(launches, "the conv-kernel register call", backward=False)
         if launches["layout_copies"] != 0:
             raise AssertionError(f"the register call copied conv inputs to channels-last "
                                  f"{launches['layout_copies']} times")
@@ -719,11 +792,13 @@ def fast_warp_check(moving, fixed):
         return out
 
     def phase_launches(out):
-        # the plain call's kernel launches: the squarings, and the final warp
-        # where max|warp| <= 1 (the halo-1 tier); the fast call's: the same
-        # squarings and 4 halo-2 phase warps
-        squarings = out["plain"][2]["fwd"] - int(out["plain"][1].abs().max().item() <= 1.0)
-        return out["fast"][2]["fwd"] - squarings
+        # the bounded launches that ran: in the plain call, the kernel-tier
+        # squarings and the final warp where max|warp| <= 1 (the halo-1
+        # tier); in the fast call, the same squarings and 4 halo-2 phase
+        # warps
+        squarings = out["plain"][2]["fwd_ran"] - int(
+            out["plain"][1].abs().max().item() <= 1.0)
+        return out["fast"][2]["fwd_ran"] - squarings
 
     model = load_model(str(CHECKPOINT), device="cuda")
     out = calls(model, moving, fixed)
@@ -897,19 +972,20 @@ def check_grads_gpu_vs_cpu(rng):
     def grads(device):
         v, s, u = (torch.from_numpy(a).to(device).requires_grad_() for a in (vol, shift, vec))
         w = torch.from_numpy(w_out).to(device)
-        warp_bounded_bwd.launches = 0
+        reset_launches()
         g_warp = torch.autograd.grad((warp_bounded(v, s, 1) * w).sum(), (v, s),
                                      allow_unused=True)
         g_int = torch.autograd.grad((warp_ops.integrate_vec_batched(u, 7) * w).sum(), (u,),
                                     allow_unused=True)
+        counts = read_launches()
         return [None if x is None else x.cpu() for x in (*g_warp, *g_int)], \
-            warp_bounded_bwd.launches
+            counts["bwd_ran" if device == "cuda" else "bwd"]
 
     gpu, gpu_launches = grads("cuda")
     with window_halo("1"):
         cpu, cpu_launches = grads("cpu")
-    log(f"max|vec| {np.abs(vec).max():.3f} voxels; warp_bounded_bwd launches: "
-        f"GPU {gpu_launches}, CPU {cpu_launches}")
+    log(f"max|vec| {np.abs(vec).max():.3f} voxels; warp_bounded_bwd launches that ran on "
+        f"the GPU {gpu_launches}, launches on the CPU {cpu_launches}")
     if gpu_launches == 0 or cpu_launches != 0:
         raise AssertionError("the GPU gradients did not come from the backward kernel alone")
     for name, a, b in zip(("warp dvol", "warp dshift", "integrate dvec"), gpu, cpu):
@@ -1111,8 +1187,9 @@ def train_full_width(profile):
             loss_g, grads_g, launches_g = one_step_grads(INSHAPE, "cuda", moving, fixed,
                                                          flow_std)
         log(f"{label}: kernel launches {launches}, gather-only path {launches_g}")
-        if launches["fwd"] == 0 or launches["bwd"] == 0 or launches_g["bwd"] != 0:
-            raise AssertionError(f"kernel launches {launches}, gather-only {launches_g}")
+        check_warp_work(launches, f"the kernel path, {label}")
+        if not no_warp_launches(launches_g):
+            raise AssertionError(f"the gather-only path launched warp kernels: {launches_g}")
         compare_grads(f"kernel vs gather-only, {label}, {INSHAPE}", loss_k, grads_k,
                       loss_g, grads_g, rtol)
         if flow_std is None:
@@ -1142,15 +1219,16 @@ def train_full_width(profile):
     torch.cuda.reset_peak_memory_stats()
     step_losses, step_s, per_step = [], [], []
     for step in range(11):
-        warp_bounded.launches = warp_bounded_bwd.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         metrics = trainer.train_step((moving, fixed), (fixed, zero))
         step_losses.append(metrics["loss"].item())  # synchronises
         step_s.append(time.perf_counter() - t0)
-        per_step.append((warp_bounded.launches, warp_bounded_bwd.launches))
+        per_step.append(read_launches())
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log("step losses: " + ", ".join(f"{x:.8f}" for x in step_losses))
-    log("kernel launches per step (fwd, bwd): " + ", ".join(f"{a},{b}" for a, b in per_step))
+    log("bounded kernel launches per step, forward/ran and backward/ran: " + ", ".join(
+        f"{p['fwd']}/{p['fwd_ran']} {p['bwd']}/{p['bwd_ran']}" for p in per_step))
     median_s = float(np.median(step_s[1:]))
     log(f"float32 train step, bs1, {INSHAPE}: median {median_s:.4f} s/step over "
         f"{len(step_s) - 1} steps after one warm-up ({step_s[0]:.3f} s); peak memory "
@@ -1159,8 +1237,8 @@ def train_full_width(profile):
         raise AssertionError("non-finite training loss")
     if not step_losses[-1] < step_losses[0]:
         raise AssertionError(f"ten steps did not lower the loss: {step_losses}")
-    if any(b == 0 for _, b in per_step):
-        raise AssertionError("a train step launched no warp_bounded_bwd kernel")
+    for step, counts in enumerate(per_step):
+        check_warp_work(counts, f"train step {step}")
     if profile:
         profile_device("train step", lambda: trainer.train_step(
             (moving, fixed), (fixed, zero))["loss"].item(), rows=30)
@@ -1180,15 +1258,15 @@ def train_checkpoint_recipe():
     moving, fixed = smooth_pair(INSHAPE, "cuda")
     zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
     for step in range(3):
-        warp_bounded_bwd.launches = 0
+        reset_launches()
         metrics = {k: v.item() for k, v in trainer.train_step((moving, fixed),
                                                               (fixed, zero)).items()}
+        counts = read_launches()
         log(f"checkpoint recipe step {step}: {json.dumps(metrics)}; "
-            f"warp_bounded_bwd launches {warp_bounded_bwd.launches}")
+            f"warp_bounded_bwd launches {counts['bwd']}, of which {counts['bwd_ran']} ran")
         if not all(np.isfinite(list(metrics.values()))):
             raise AssertionError("non-finite loss in the checkpoint recipe")
-        if warp_bounded_bwd.launches == 0:
-            raise AssertionError("the checkpoint recipe launched no warp_bounded_bwd kernel")
+        check_warp_work(counts, f"checkpoint recipe step {step}")
 
 
 def train_conv_kernel(moving, fixed, profile):
@@ -1202,10 +1280,11 @@ def train_conv_kernel(moving, fixed, profile):
         with conv_kernel_mode(enabled):
             runs[enabled] = one_step_grads(INSHAPE, "cuda", moving, fixed, FLOW_STD)
     log(f"one step, conv kernel launches {runs[True][2]}, cuDNN mode {runs[False][2]}")
-    expected = 2 * len(UNET_CONVS) - 1
-    if runs[True][2]["conv"] != expected or runs[False][2]["conv"] != 0 or \
-            runs[True][2]["bwd"] == 0:
-        raise AssertionError(f"expected {expected} conv launches and warp launches per step")
+    expected = TRAIN_STEP_CONVS
+    if runs[True][2]["conv"] != expected or runs[False][2]["conv"] != 0:
+        raise AssertionError(f"expected {expected} conv launches per step")
+    for enabled, run in runs.items():
+        check_warp_work(run[2], f"one step, conv kernel {enabled}")
     if runs[True][2]["layout_copies"] != 0:
         raise AssertionError(f"a train step copied conv inputs or cotangents to channels-last "
                              f"{runs[True][2]['layout_copies']} times")
@@ -1234,8 +1313,10 @@ def train_conv_kernel(moving, fixed, profile):
             f"{x:.4f}" for x in step_s) + f" s/step; peak memory allocated {peak_gb:.3f} GiB")
         if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
             raise AssertionError(f"three steps did not lower the loss: {step_losses}")
-        if any(p["conv"] != expected or p["fwd"] == 0 or p["bwd"] == 0 for p in per_step):
+        if any(p["conv"] != expected for p in per_step):
             raise AssertionError(f"a step missed a kernel: {per_step}")
+        for counts in per_step:
+            check_warp_work(counts, "a conv-kernel train step")
         if any(p["layout_copies"] != 0 for p in per_step):
             raise AssertionError(f"a step copied conv inputs to channels-last: {per_step}")
         if profile:
@@ -1367,13 +1448,14 @@ def train_semisupervised(one_step_launches, smi):
         # the first step launches what a VxmDense step from the same weights
         # launches (phases 4 and 4b); every step launches both warp kernels
         # and, in kernel mode, the U-Net's 21 convs
-        convs = 2 * len(UNET_CONVS) - 1 if enabled else 0
+        convs = TRAIN_STEP_CONVS if enabled else 0
         if per_step[0] != {**one_step_launches[enabled], "conv": convs}:
             raise AssertionError(f"the first semi-supervised step launched {per_step[0]}, a "
                                  f"VxmDense step {one_step_launches[enabled]}")
-        if any(p["fwd"] == 0 or p["bwd"] == 0 or p["conv"] != convs or p["layout_copies"] != 0
-               for p in per_step):
+        if any(p["conv"] != convs or p["layout_copies"] != 0 for p in per_step):
             raise AssertionError(f"a semi-supervised step missed a kernel: {per_step}")
+        for counts in per_step:
+            check_warp_work(counts, f"a semi-supervised step, {mode}")
         per_mode[enabled] = per_step[-1]
         del trainer, model
     return per_mode[False], per_mode[True]
@@ -1643,10 +1725,11 @@ def train_pointcloud(smi):
             if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
                 raise AssertionError(f"three point-cloud steps ({mode}) did not lower the "
                                      f"loss: {step_losses}")
-            convs = 2 * len(UNET_CONVS) - 1 if enabled else 0
-            if any(p["fwd"] == 0 or p["bwd"] == 0 or p["conv"] != convs
-                   or p["layout_copies"] != 0 for p in per_step):
+            convs = TRAIN_STEP_CONVS if enabled else 0
+            if any(p["conv"] != convs or p["layout_copies"] != 0 for p in per_step):
                 raise AssertionError(f"a point-cloud step missed a kernel: {per_step}")
+            for counts in per_step:
+                check_warp_work(counts, f"a point-cloud step, {mode}")
             per_mode[enabled] = per_step[-1]
             if not enabled:
                 trainer.save(f"{tmp}/pointcloud.npz")
@@ -1662,15 +1745,16 @@ def train_pointcloud(smi):
         register_cli.main(["--moving", f"{tmp}/subject.npz", "--fixed", f"{tmp}/atlas.npz",
                            "--model", f"{tmp}/pointcloud.npz", "--moved", f"{tmp}/moved.nii",
                            "--warp", f"{tmp}/warp.nii"])
+        counts = read_launches()
         warp = load_volfile(f"{tmp}/warp.nii")
         moved = load_volfile(f"{tmp}/moved.nii")
         log(f"cli/register with the point-cloud checkpoint: {time.perf_counter() - t0:.2f} s, "
-            f"launches {read_launches()}, warp {warp.shape}, max|warp| "
+            f"launches {counts}, warp {warp.shape}, max|warp| "
             f"{np.abs(warp).max():.3f} voxels")
         if warp.shape != (*INSHAPE, 3) or moved.shape != INSHAPE or \
-                not (np.isfinite(warp).all() and np.isfinite(moved).all()) or \
-                read_launches()["fwd"] == 0:
+                not (np.isfinite(warp).all() and np.isfinite(moved).all()):
             raise AssertionError("cli/register of the point-cloud checkpoint failed")
+        check_warp_work(counts, "cli/register of the point-cloud checkpoint", backward=False)
     return per_mode[False], per_mode[True]
 
 
@@ -1725,8 +1809,7 @@ def cached_dispatch_check(smi):
         raise AssertionError("the dispatched steps differ from single steps")
     if many["fetches"] != 1 or one["fetches"] != DISPATCH_STEPS:
         raise AssertionError(f"metric fetches {many['fetches']} and {one['fetches']}")
-    if many["launches"]["fwd"] == 0 or many["launches"]["bwd"] == 0:
-        raise AssertionError(f"the dispatch launched no warp kernel: {many['launches']}")
+    check_warp_work(many["launches"], f"a dispatch of {DISPATCH_STEPS} steps")
     launches = {k: v // DISPATCH_STEPS for k, v in many["launches"].items()}
 
     # phase 4's step with and without the rematerialised integration: the
@@ -1888,6 +1971,540 @@ def nd_and_res_check(smi):
 
 
 
+def tier_case(rng, spatial, nch, tier):
+    """A volume and a random shift (batch 1) whose max|d| puts the warp on
+    ``tier`` of the tiers {1, TIER_HALO}: bound 1, TIER_HALO or
+    TIER_HALO + 2, with bands pushed across every edge (warp_case); on the
+    gather tier also slabs of coordinates exactly on 0 and dim - 1."""
+    vol, shift = warp_case(rng, 1, spatial, nch, {0: 1, 1: TIER_HALO, 2: TIER_HALO + 2}[tier])
+    if tier == 2:
+        for axis, dim in enumerate(spatial):
+            idx = [slice(None)] * 5
+            idx[1 + axis], idx[4] = 4, axis
+            shift[tuple(idx)] = -4.0
+            idx[1 + axis] = 1
+            shift[tuple(idx)] = float(dim - 2)
+    return vol, shift
+
+
+def host_chosen_warp(vol, shift):
+    """The warp as the port chose its tier before: max|d| read on the host,
+    then the one branch (the bounded kernel or the torch gather)."""
+    max_d = shift.abs().max().item()
+    for h in (1, TIER_HALO):
+        if max_d <= h:
+            return warp_bounded(vol, shift, h)
+    return warp_gather_plain(vol, shift)
+
+
+def wall_ms(fn, reps=20):
+    """Host wall-clock ms per call of ``fn`` over ``reps`` calls, from a
+    synchronised card to a synchronised card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_tiered_warp(rng):
+    """Phase 2e: the predicated warp at each tier of {1, TIER_HALO} at the
+    squaring shape, 1 to 4 channels (the gather's dshift adds the channels
+    in the order of the card's torch reduction, which differs by channel
+    count: csrc/warp_gather.cu channel_sum). Each branch's kernel writes its own
+    NaN-filled buffer with the device's tier word: the branches not named
+    must leave theirs untouched, the named one must equal the unpredicated
+    kernel (bounded) or the torch gather (gather forward and dshift bit for
+    bit, dvol within GATHER_DVOL_RTOL). Then the whole tiered warp
+    (transform_batched, forward and backward) against the host-chosen path,
+    its work counters, its time against the host-chosen call's, and the
+    time of a launch that returns at once. Returns the gather kernel's rows
+    for the kernels line."""
+    spatial = WARP_CASES[0][1]
+    halos = (1, TIER_HALO)
+    skipped = {}
+    for nch in (1, 2, 3, 4):
+        for tier in (0, 1, 2):
+            vol, shift = tier_case(rng, spatial, nch, tier)
+            g = torch.from_numpy(rng.standard_normal(vol.shape, dtype=np.float32)).cuda()
+            word = warp_ops.tier_index(shift, halos)
+            # (a) every branch into its own buffer
+            outs, grads = [], []
+            for serve in range(3):
+                out = torch.full_like(vol, float("nan"))
+                dvol = torch.full_like(vol, float("nan"))
+                dshift = torch.full_like(shift, float("nan"))
+                if serve < 2:
+                    warp_bounded_ops.launch_bounded_fwd(vol, shift, out, halos[serve], word, serve)
+                    warp_bounded_ops.launch_bounded_bwd(vol, shift, g, dvol, dshift, halos[serve],
+                                                        word, serve)
+                else:
+                    launch_gather_fwd(vol, shift, out, word, serve)
+                    launch_gather_bwd(vol, shift, g, dvol, dshift, word, serve)
+                outs.append(out)
+                grads.append((dvol, dshift))
+            torch.cuda.synchronize()
+            for serve in range(3):
+                if serve != tier and not (torch.isnan(outs[serve]).all() and all(
+                        torch.isnan(x).all() for x in grads[serve])):
+                    raise AssertionError(f"branch {serve} wrote at tier {tier}, C = {nch}")
+            out, (dvol, dshift) = outs[tier], grads[tier]
+            if tier < 2:
+                ref = warp_bounded(vol, shift, halos[tier])
+                ref_vol, ref_shift = warp_bounded_bwd(vol, shift, g, halos[tier])
+                plain_err = (out - windowed_transform(vol, shift, halos[tier])).abs().max().item()
+                equal = torch.equal(out, ref) and torch.equal(dvol, ref_vol) and \
+                    torch.equal(dshift, ref_shift)
+                dvol_rel = 0.0
+            else:
+                ref = warp_gather_plain(vol, shift)
+                ref_vol, ref_shift = warp_gather_bwd_plain(vol, shift, g)
+                plain_err = (out - ref).abs().max().item()
+                equal = torch.equal(out, ref) and torch.equal(dshift, ref_shift)
+                dvol_rel = ((dvol - ref_vol).abs().max() / ref_vol.abs().max()).item()
+            log(f"tier {tier}, C = {nch}: max|d| {shift.abs().max().item():.3f}; the named "
+                f"branch equals its reference {equal} (forward vs plain {plain_err:.3e}"
+                f"{'' if tier < 2 else f', dvol rel {dvol_rel:.3e} (tol {GATHER_DVOL_RTOL})'}); "
+                f"the others wrote nothing")
+            if not equal or dvol_rel > GATHER_DVOL_RTOL or plain_err > KERNEL_TOL:
+                raise AssertionError(f"the tier-{tier} branch differs from its reference")
+
+            # (b) the whole tiered warp, forward and backward, and its counters
+            v, s = vol.clone().requires_grad_(), shift.clone().requires_grad_()
+            reset_launches()
+            with window_halo(str(TIER_HALO)):
+                got = warp_ops.transform_batched(v, s)
+                got_vol, got_shift = torch.autograd.grad(got, (v, s), g)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            ran = (counts["fwd_ran"], counts["gather_fwd_ran"], counts["bwd_ran"],
+                   counts["gather_bwd_ran"])
+            want = (int(tier < 2), int(tier == 2), int(tier < 2), int(tier == 2))
+            ok = torch.equal(got, out) and torch.equal(got_shift, dshift) and (
+                torch.equal(got_vol, dvol) if tier < 2 else
+                ((got_vol - ref_vol).abs().max() / ref_vol.abs().max()).item()
+                <= GATHER_DVOL_RTOL)
+            log(f"tier {tier}, C = {nch}: transform_batched (predicated) forward and backward "
+                f"equal the branch {ok}; launches {counts['fwd']} + {counts['gather_fwd']} "
+                f"forward, {counts['bwd']} + {counts['gather_bwd']} backward; ran "
+                f"(bounded fwd, gather fwd, bounded bwd, gather bwd) {ran}")
+            if not ok or ran != want:
+                raise AssertionError(f"the tiered warp at tier {tier} took another branch")
+
+            # (c) the predicated call against the host-chosen one, and the
+            # device time of each launch that returns at once
+            if nch not in (1, 3):  # the channel counts of the main paths
+                continue
+            with window_halo(str(TIER_HALO)):
+                times = dict(predicated=wall_ms(lambda: warp_ops.transform_batched(vol, shift)),
+                             host_chosen=wall_ms(lambda: host_chosen_warp(vol, shift)))
+            log(f"tier {tier}, C = {nch}: forward warp {times['predicated']:.4f} ms predicated "
+                f"(3 launches, no host sync), {times['host_chosen']:.4f} ms host-chosen (a host "
+                f"read of max|d|, 1 launch); host wall clock, 20 calls")
+            if nch == 3 and tier == 0:
+                other = torch.empty_like(vol)
+                skipped = time_in_turns(dict(
+                    bounded_fwd=lambda: warp_bounded_ops.launch_bounded_fwd(
+                        vol, shift, other, TIER_HALO, word, 1),
+                    bounded_bwd=lambda: warp_bounded_ops.launch_bounded_bwd(
+                        vol, shift, g, other, torch.empty_like(shift), TIER_HALO, word, 1),
+                    gather_fwd=lambda: launch_gather_fwd(vol, shift, other, word, 2),
+                    gather_bwd=lambda: launch_gather_bwd(vol, shift, g, other,
+                                                         torch.empty_like(shift), word, 2)))
+                log(f"device ms of a launch that returns at once, {spatial}, C = 3: "
+                    + json.dumps(skipped))
+            del vol, shift, g, outs, grads, v, s, got, got_vol, got_shift, ref, ref_vol, ref_shift
+
+    # (d) the phase warp (--fast-warp's lax.cond) forward and backward at
+    # each branch against the host-chosen composition
+    check_phase_warp(rng, spatial)
+
+    # (e) the gather kernels at the squaring shape on a smooth field of up to
+    # TIER_HALO + 2 voxels (a late squaring's), against the torch gather and
+    # grid_sample
+    nch = WARP_CASES[0][2]
+    vol = torch.from_numpy(rng.standard_normal((1, *spatial, nch), dtype=np.float32)).cuda()
+    shift = smooth_field(rng, spatial, (5, 6, 7), 1.0, "cuda")[None]
+    shift = (shift * ((TIER_HALO + 2) / shift.abs().max())).contiguous()
+    g = torch.from_numpy(rng.standard_normal(vol.shape, dtype=np.float32)).cuda()
+    out = torch.empty_like(vol)
+    launch_gather_fwd(vol, shift, out)
+    dvol, dshift = torch.empty_like(vol), torch.empty_like(shift)
+    launch_gather_bwd(vol, shift, g, dvol, dshift)
+    ref = warp_gather_plain(vol, shift)
+    ref_vol, ref_shift = warp_gather_bwd_plain(vol, shift, g)
+    fwd_err = (out - ref).abs().max().item()
+    bwd_err = max((dvol - ref_vol).abs().max().item(), (dshift - ref_shift).abs().max().item())
+    coords = ndgrid(spatial, device="cuda") + shift
+    dims = torch.tensor([s - 1 for s in spatial], device="cuda", dtype=torch.float32)
+    grid = (2.0 * coords / dims - 1.0).flip(-1).contiguous().requires_grad_()
+    vol_cf = vol.movedim(-1, 1).contiguous().requires_grad_()
+    out_cf = grid_sample_warp(vol_cf, grid)
+    g_cf = g.movedim(-1, 1).contiguous()
+    vox = int(np.prod(spatial))
+    fwd_bytes, bwd_bytes = (2 * nch + 3) * 4 * vox, (3 * nch + 6) * 4 * vox
+    fwd_row = dict(shape=[1, *spatial, nch], max_abs_err=fwd_err, bit_equal=torch.equal(out, ref),
+                   plain_ms=time_cuda_ms(lambda: warp_gather_plain(vol, shift), reps=5, warmup=1),
+                   bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    fwd_row.update(time_in_turns(dict(ms=lambda: launch_gather_fwd(vol, shift, out),
+                                      library_ms=lambda: grid_sample_warp(vol_cf, grid))))
+    bwd_row = dict(shape=[1, *spatial, nch], max_abs_err=bwd_err,
+                   dshift_bit_equal=torch.equal(dshift, ref_shift),
+                   plain_ms=time_cuda_ms(lambda: warp_gather_bwd_plain(vol, shift, g), reps=5,
+                                         warmup=1),
+                   bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    bwd_row.update(time_in_turns(dict(
+        ms=lambda: launch_gather_bwd(vol, shift, g, dvol, dshift),
+        library_ms=lambda: torch.autograd.grad(out_cf, (vol_cf, grid), g_cf,
+                                               retain_graph=True))))
+    for row in (fwd_row, bwd_row):
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    log("gather forward " + json.dumps(fwd_row))
+    log("gather backward " + json.dumps(bwd_row))
+    if not (fwd_row["bit_equal"] and bwd_row["dshift_bit_equal"]) or \
+            ((dvol - ref_vol).abs().max() / ref_vol.abs().max()).item() > GATHER_DVOL_RTOL:
+        raise AssertionError("the gather kernels differ from the torch gather")
+    return fwd_row, bwd_row, skipped
+
+
+def check_phase_warp(rng, spatial, n_apps=4, halo=TIER_HALO):
+    """phase_warp_batched on the card (the branch chosen on the device)
+    against the host-chosen branch (n_apps warp_bounded calls by root, or
+    the torch gather by full_flow), forward and backward, where max|root|
+    <= halo (the fast branch) and where it exceeds it (the slow one): the
+    forward, dfull_flow and the fast branch's dvols and droot bit-equal,
+    the slow branch's dvols within GATHER_DVOL_RTOL and its droot zero."""
+    for branch, bound in ((0, halo), (1, halo + 1)):
+        vols = torch.from_numpy(rng.standard_normal((1, *spatial, 1), dtype=np.float32)).cuda()
+        root = warp_case(rng, 1, spatial, 3, bound)[1]
+        full = smooth_field(rng, spatial, (5, 6, 7), 2.0 * n_apps, "cuda")[None].contiguous()
+        g = torch.from_numpy(rng.standard_normal(vols.shape, dtype=np.float32)).cuda()
+        grads = {}
+        for name in ("card", "host"):
+            v, r, f = (t.clone().requires_grad_() for t in (vols, root, full))
+            if name == "card":
+                out = warp_ops.phase_warp_batched(v, r, f, n_apps, halo)
+            elif branch == 0:
+                out = v
+                for _ in range(n_apps):
+                    out = warp_bounded(out, r, halo)
+            else:
+                out = warp_gather_plain(v, f)
+            grads[name] = (out.detach(), *torch.autograd.grad(out, (v, r, f), g,
+                                                              allow_unused=True))
+        (out, dv, dr, df), (rout, rdv, rdr, rdf) = grads["card"], grads["host"]
+        zero_if_none = (lambda x, like: torch.zeros_like(like) if x is None else x)
+        rdr, rdf = zero_if_none(rdr, root), zero_if_none(rdf, full)
+        dv_ok = torch.equal(dv, rdv) if branch == 0 else \
+            ((dv - rdv).abs().max() / rdv.abs().max()).item() <= GATHER_DVOL_RTOL
+        ok = torch.equal(out, rout) and dv_ok and torch.equal(dr, rdr) and torch.equal(df, rdf)
+        log(f"phase warp, {'fast' if branch == 0 else 'slow'} branch (max|root| "
+            f"{root.abs().max().item():.2f}, halo {halo}): forward and gradients equal the "
+            f"host-chosen branch's {ok}")
+        if not ok:
+            raise AssertionError("the phase warp on the card differs from the host-chosen one")
+
+
+def redraw_until_all_tiers(label, moving, fixed):
+    """The default recipe with its flow head redrawn N(0, flow_std), from
+    FLOW_STD and 4 times larger (up to 3 draws), until a register call
+    takes the halo-1, the halo-TIER_HALO and the gather tier (under
+    VXM_WINDOW_HALO=TIER_HALO). Returns (model on the card, terms,
+    flow_std, the tiers of the call's warps)."""
+    flow_std = FLOW_STD
+    for _ in range(3):
+        model, terms = default_recipe(INSHAPE, flow_std)
+        model = model.to("cuda").eval()
+        register = build_register_fn(model)
+        tiers = tiers_taken(lambda: register(moving, fixed))
+        log(f"{label}, flow head N(0, {flow_std}): tiers of the register call's warps {tiers}")
+        if set(tiers) == {0, 1, 2}:
+            return model, terms, flow_std, tiers
+        flow_std *= 4
+    raise AssertionError(f"{label}: no flow head drawn took every tier")
+
+
+def tiers_taken(model_fn):
+    """The tier each tiered warp of one call of ``model_fn`` took, read from
+    the work counters: they are fetched around each of a warp's predicated
+    forward launches (host reads: diagnostics only, outside the timed and
+    sync-checked runs), and the warp's tier is the branch whose launch did
+    work. Fails unless exactly one branch of each warp did, the one its
+    tier index names."""
+    taken, ran = [], []
+    forward = warp_ops._TieredWarp.forward
+    bounded, gather = warp_bounded_ops.launch_bounded_fwd, warp_ops.launch_gather_fwd
+
+    def counted(launch, slot):
+        def run(*args):  # the last argument is the branch the launch serves
+            before = warp_bounded_ops.read_work()[slot]
+            launch(*args)
+            if warp_bounded_ops.read_work()[slot] != before:
+                ran.append(args[-1])
+        return run
+
+    def tiered(ctx, vol, shift, halos):
+        ran.clear()
+        out = forward(ctx, vol, shift, halos)
+        named = int(warp_ops.tier_index(shift, halos).item())
+        if ran != [named]:
+            raise AssertionError(f"a tiered warp ran the branches {ran}; its tier index "
+                                 f"names {named}")
+        taken.append(named)
+        return out
+
+    warp_ops._TieredWarp.forward = staticmethod(tiered)
+    warp_bounded_ops.launch_bounded_fwd = counted(bounded, "warp_bounded_fwd")
+    warp_ops.launch_gather_fwd = counted(gather, "warp_gather_fwd")
+    try:
+        model_fn()
+    finally:
+        warp_ops._TieredWarp.forward = staticmethod(forward)
+        warp_bounded_ops.launch_bounded_fwd = bounded
+        warp_ops.launch_gather_fwd = gather
+    return taken
+
+
+def sync_free_check(smi):
+    """Phase 7: the full-width register call and one float32 train step of
+    the default recipe, flow head redrawn so that every tier runs, in cuDNN
+    and conv-kernel mode, each under torch.cuda.set_sync_debug_mode("error")
+    after a warm-up: any host synchronisation inside raises. Also the time
+    of each path."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    results = {}
+    with window_halo(str(TIER_HALO)):
+        for enabled in (False, True):
+            mode = "conv kernel" if enabled else "cuDNN"
+            with conv_kernel_mode(enabled):
+                model, terms, flow_std, tiers = redraw_until_all_tiers(
+                    f"register call, {mode}", moving, fixed)
+                register = build_register_fn(model)
+                register(moving, fixed)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    moved, warp = register(moving, fixed)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                if not (torch.isfinite(moved).all() and torch.isfinite(warp).all()):
+                    raise AssertionError(f"non-finite register output ({mode})")
+                ms = wall_ms(lambda: register(moving, fixed), reps=5)
+
+                trainer = Trainer(model.train(), terms, lr=1e-4, device="cuda")
+                trainer.train_step((moving, fixed), (fixed, zero))["loss"].item()  # warm-up
+                step_tiers = tiers_taken(lambda: trainer.train_step((moving, fixed),
+                                                                    (fixed, zero)))
+                torch.cuda.synchronize()
+                reset_launches()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    metrics = trainer.train_step((moving, fixed), (fixed, zero))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                counts = read_launches()
+                check_warp_work(counts, f"the sync-free train step, {mode}")
+                loss = metrics["loss"].item()
+                step_s = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    trainer.train_step((moving, fixed), (fixed, zero))["loss"].item()
+                    step_s.append(time.perf_counter() - t0)
+                log(f"{mode}, VXM_WINDOW_HALO={TIER_HALO}, flow head N(0, {flow_std}): register "
+                    f"call and train step ran under set_sync_debug_mode('error') with no host "
+                    f"sync; tiers of the register call's warps {tiers}, of a step's forward "
+                    f"warps {step_tiers}; the step's launches {counts}; loss {loss:.8f}; "
+                    f"register {ms:.2f} ms per pair (float32), step " + ", ".join(
+                        f"{x:.4f}" for x in step_s) + f" s; {smi}")
+                if not np.isfinite(loss) or sorted(set(tiers + step_tiers)) != [0, 1, 2]:
+                    raise AssertionError(f"the sync-free runs ({mode}) did not take every tier")
+                results[enabled] = dict(register_ms=ms, step_s=float(np.median(step_s)),
+                                        tiers=sorted(set(tiers + step_tiers)), launches=counts)
+                del trainer, model, register
+    return results
+
+
+def unet_remat_check(smi):
+    """Phase 6e: the U-Net's per-block remat on and off in phase 4's step
+    (flow head redrawn), cuDNN and conv-kernel mode: gradients bit-equal
+    (cudnn.deterministic), peak memory and seconds per step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    out = {}
+    for enabled in (False, True):
+        mode = "conv kernel" if enabled else "cuDNN"
+        runs = {}
+        with conv_kernel_mode(enabled):
+            for remat in (True, False):
+                def recipe(inshape, flow_std, remat=remat):
+                    model, terms = default_recipe(inshape, flow_std)
+                    model.unet.remat = remat
+                    return model, terms
+
+                saved = torch.backends.cudnn.deterministic
+                torch.backends.cudnn.deterministic = True
+                try:
+                    loss, grads, launches = recipe_step_grads(
+                        recipe, INSHAPE, "cuda", ((moving, fixed), (fixed, zero)), FLOW_STD)
+                finally:
+                    torch.backends.cudnn.deterministic = saved
+                model, terms = recipe(INSHAPE, FLOW_STD)
+                trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+                trainer.train_step((moving, fixed), (fixed, zero))["loss"].item()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                step_s = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    trainer.train_step((moving, fixed), (fixed, zero))["loss"].item()
+                    step_s.append(time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                runs[remat] = dict(loss=loss, grads=grads, peak=peak,
+                                   s=float(np.median(step_s)), conv=launches["conv"])
+                log(f"U-Net remat={remat}, {mode}: " + ", ".join(f"{x:.4f}" for x in step_s)
+                    + f" s/step, peak memory allocated {peak:.3f} GiB, conv launches "
+                    f"{launches['conv']}; {smi}")
+                del trainer, model
+        same = runs[True]["loss"] == runs[False]["loss"] and all(
+            torch.equal(runs[True]["grads"][n], gr) for n, gr in runs[False]["grads"].items())
+        log(f"U-Net remat against stored, {mode}: loss and {len(runs[True]['grads'])} "
+            f"gradients bit-equal {same}")
+        want = (TRAIN_STEP_CONVS, 2 * len(UNET_CONVS) - 1) if enabled else (0, 0)
+        if not same or (runs[True]["conv"], runs[False]["conv"]) != want:
+            raise AssertionError(f"the U-Net remat changed the gradients or the conv launches "
+                                 f"({mode})")
+        out[enabled] = {k: {r: runs[r][k] for r in (True, False)} for k in ("peak", "s")}
+    return out
+
+
+def draw_parts(tmp):
+    """Seconds of each part of one point-cloud draw on the card, at full
+    width: for each of POINT_LABELS_SAMPLED subject labels the components
+    (largest island and hole fill), the blur, the threshold (the k-th
+    largest blurred value) and the EDT; for
+    the subject's and the atlas's SDT of each the x2 zoom and the point
+    draws (as generators.surf_semisupervised computes them)."""
+    from voxelmorph_tpu_torch.py import ndimage as ndi
+    from voxelmorph_tpu_torch.py import utils as pu
+
+    with np.load(f"{tmp}/subject.npz") as d:
+        seg = torch.as_tensor(d["seg"], device="cuda")
+    labels = np.unique(seg.cpu().numpy())[1:POINT_LABELS_SAMPLED + 1]
+    parts = dict(components=0.0, blur=0.0, threshold=0.0, edt=0.0, zoom=0.0, points=0.0)
+    rng = np.random.default_rng(SEED)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        parts[name] += time.perf_counter() - t0
+        return result
+
+    per = SURF_POINTS // (2 * POINT_LABELS_SAMPLED)
+    for label in labels:
+        mask = seg == int(label)
+        island = timed("components", lambda: pu.extract_largest_vol(mask))
+        filled = timed("components", lambda: ~pu.extract_largest_vol(~island))
+        smooth = timed("blur", lambda: ndi.gaussian_filter(filled, 0.1))
+        size = int(filled.sum().item())
+        clean = timed("threshold", lambda: smooth > -torch.sort(-smooth.reshape(-1)).values[size])
+        sdt = timed("edt", lambda: pu.signed_dist_trf(clean.to(torch.float64)))
+        for _ in range(2):  # the subject's and the atlas's SDT of the label
+            fine = timed("zoom", lambda: ndi.zoom(sdt, [2] * 3, order=1))
+            timed("points", lambda: pu.edge_to_surface_pts(fine.abs() < 0.50001, per, rng=rng))
+    return parts
+
+
+def prefetch_check(smi):
+    """Phase 6d: Trainer.fit with prefetch 2 and without (cuDNN mode, flow
+    head redrawn), of the point-cloud recipe from its generator on the card
+    (the producer on its own stream) and of cli/train's default fit from
+    scan_to_scan over npz files (a draw is host work: two volumes read from
+    disk). The batches are the same, so the parameters after the same steps
+    must be bit-equal (cudnn.deterministic); seconds per step of each, and
+    the parts of one point-cloud draw."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        pointcloud_files(tmp, INSHAPE, "cuda")
+        return _prefetch_check(tmp, smi)
+
+
+def fits_with_and_without_prefetch(label, make_generator, recipe, steps=4):
+    """Trainer.fit of ``steps`` steps of ``recipe()`` (model, terms) from
+    ``make_generator()``, inline and with prefetch 2, from the same weights
+    (cudnn.deterministic). Each generator is drawn once on this thread
+    before the fit, as the point-cloud CLI draws (the point-cloud atlas's
+    SDTs are made then, on this thread's stream), then once for a warm-up
+    step. Fails unless the parameters after both fits are bit-equal.
+    Returns the seconds per step, {0: inline, 2: prefetch}."""
+    runs = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for prefetch in (0, 2):
+            gen = make_generator()
+            next(gen)
+            model, terms = recipe()
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            trainer.train_step(*next(gen))["loss"].item()  # warm-up step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.fit(gen, epochs=1, steps_per_epoch=steps, log_fn=lambda _: None,
+                                  prefetch_size=prefetch)
+            torch.cuda.synchronize()
+            runs[prefetch] = dict(s=(time.perf_counter() - t0) / steps, loss=metrics["loss"],
+                                  params={n: p.detach().clone()
+                                          for n, p in trainer.model.named_parameters()})
+            del trainer, model, gen
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    equal = all(torch.equal(runs[0]["params"][n], p) for n, p in runs[2]["params"].items())
+    log(f"{label} fit, {steps} steps, cuDNN: {runs[0]['s']:.4f} s/step inline, "
+        f"{runs[2]['s']:.4f} s/step with prefetch 2; params bit-equal {equal}; losses "
+        f"{runs[0]['loss']:.8f}, {runs[2]['loss']:.8f}")
+    if not equal:
+        raise AssertionError(f"prefetch changed the batches or their order ({label})")
+    return {k: run["s"] for k, run in runs.items()}
+
+
+def _prefetch_check(tmp, smi):
+    point = fits_with_and_without_prefetch(
+        "point-cloud (the generator on the card, its own stream)",
+        lambda: pointcloud_generator(tmp, "cuda"), lambda: pointcloud_recipe(INSHAPE, FLOW_STD))
+    # cli/train's default: scan_to_scan over four npz volumes (the pair and
+    # its mirror images), the default recipe
+    moving, fixed = smooth_pair(INSHAPE, "cpu")
+    files = []
+    for i, vol in enumerate((moving, fixed, moving.flip(1), fixed.flip(2))):
+        files.append(f"{tmp}/scan{i}.npz")
+        np.savez(files[-1], vol=vol[0, ..., 0].numpy())
+    host = fits_with_and_without_prefetch(
+        "cli/train default (scan_to_scan, volumes read from disk)",
+        lambda: generators.scan_to_scan(files, rng=np.random.default_rng(SEED)),
+        lambda: default_recipe(INSHAPE, FLOW_STD))
+    parts = draw_parts(tmp)
+    # how much of a draw is device work, which a second stream cannot hide
+    # behind a step that keeps the card busy
+    gen = pointcloud_generator(tmp, "cuda")
+    next(gen)
+    profile_device("one point-cloud draw at full width", lambda: next(gen), rows=8)
+    del gen
+    log("one point-cloud draw's parts on the card, s: " + json.dumps(parts) + f"; {smi}")
+    return dict(inline_s=point[0], prefetch_s=point[2], host_inline_s=host[0],
+                host_prefetch_s=host[2], parts=parts)
+
+
 def conv_library_times(model):
     """cuDNN's time for each 3x3x3 conv of the U-Net (the convs the Pallas
     conv kernel computes) at full width in bfloat16, forward and backward,
@@ -1981,6 +2598,10 @@ def main(argv=None) -> int:
     conv_rows, conv_totals = check_conv3(SEED + 3)
     log(f"phase 2d: {time.perf_counter() - t:.2f} s")
 
+    t = phase("2e. the predicated tiered warp at each tier; the gather kernel")
+    gather_fwd_row, gather_bwd_row, skipped = check_tiered_warp(np.random.default_rng(SEED + 9))
+    log(f"phase 2e: {time.perf_counter() - t:.2f} s")
+
     t = phase("3. VxmDense registration at full width")
     moving, fixed = smooth_pair(INSHAPE, "cuda")
     model, launches, moved, warp = register_full_width(moving, fixed)
@@ -2029,9 +2650,21 @@ def main(argv=None) -> int:
     cached_launches = cached_dispatch_check(smi)
     log(f"phase 6b: {time.perf_counter() - t:.2f} s")
 
+    t = phase("6d. point-cloud fit with and without prefetch; the parts of a draw")
+    prefetch = prefetch_check(smi)
+    log(f"phase 6d: {time.perf_counter() - t:.2f} s")
+
+    t = phase("6e. the U-Net's per-block remat on and off")
+    unet_remat = unet_remat_check(smi)
+    log(f"phase 6e: {time.perf_counter() - t:.2f} s")
+
     t = phase("6c. 2-D VxmDense; do_res with a final activation")
     nd_launches, res_launches = nd_and_res_check(smi)
     log(f"phase 6c: {time.perf_counter() - t:.2f} s")
+
+    t = phase("7. register call and train step with no host sync, every tier")
+    sync_free = sync_free_check(smi)
+    log(f"phase 7: {time.perf_counter() - t:.2f} s")
 
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
@@ -2050,8 +2683,9 @@ def main(argv=None) -> int:
         name="warp_bounded_fwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:269",
-        launches=point_launches["fwd"],
-        launches_by_path={path: n["fwd"] for path, n in paths.items()},
+        launches=point_launches["fwd"], launches_ran=point_launches["fwd_ran"],
+        launches_by_path={path: [n["fwd"], n["fwd_ran"]] for path, n in paths.items()},
+        skipped_launch_ms=skipped["bounded_fwd"],
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=serving["ms"], plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
         bound_by=serving["bound_by"], bound_share=serving["bound_share"],
@@ -2059,12 +2693,36 @@ def main(argv=None) -> int:
         name="warp_bounded_bwd", route="cuda",
         source="voxelmorph_tpu_torch/csrc/warp_bounded.cu",
         replaces="voxelmorph_tpu/ops/pallas_interp.py:952",
-        launches=point_launches["bwd"],
-        launches_by_path={path: n["bwd"] for path, n in paths.items()},
+        launches=point_launches["bwd"], launches_ran=point_launches["bwd_ran"],
+        launches_by_path={path: [n["bwd"], n["bwd_ran"]] for path, n in paths.items()},
+        skipped_launch_ms=skipped["bounded_bwd"],
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=serving_bwd["ms"], plain_ms=serving_bwd["plain_ms"],
         bound_ms=serving_bwd["bound_ms"], bound_by=serving_bwd["bound_by"],
         bound_share=serving_bwd["bound_share"], library_ms=serving_bwd["library_ms"]), dict(
+        # the gather branch of the tiered warp: no Pallas kernel computes
+        # it (the JAX package's XLA gather, interpn); times at the squaring
+        # shape on a smooth field of up to TIER_HALO + 2 voxels
+        name="warp_gather_fwd", route="cuda", source="voxelmorph_tpu_torch/csrc/warp_gather.cu",
+        replaces="voxelmorph_tpu/ops/interp.py:301", pallas_counterpart=False,
+        launches=point_launches["gather_fwd"], launches_ran=point_launches["gather_fwd_ran"],
+        launches_by_path={path: [n["gather_fwd"], n["gather_fwd_ran"]]
+                          for path, n in paths.items()},
+        skipped_launch_ms=skipped["gather_fwd"], max_abs_err=gather_fwd_row["max_abs_err"],
+        ms=gather_fwd_row["ms"], plain_ms=gather_fwd_row["plain_ms"],
+        bound_ms=gather_fwd_row["bound_ms"], bound_by=gather_fwd_row["bound_by"],
+        bound_share=gather_fwd_row["bound_share"], library_ms=gather_fwd_row["library_ms"]),
+        dict(
+        name="warp_gather_bwd", route="cuda", source="voxelmorph_tpu_torch/csrc/warp_gather.cu",
+        replaces="voxelmorph_tpu/ops/interp.py:301", pallas_counterpart=False,
+        launches=point_launches["gather_bwd"], launches_ran=point_launches["gather_bwd_ran"],
+        launches_by_path={path: [n["gather_bwd"], n["gather_bwd_ran"]]
+                          for path, n in paths.items()},
+        skipped_launch_ms=skipped["gather_bwd"], max_abs_err=gather_bwd_row["max_abs_err"],
+        ms=gather_bwd_row["ms"], plain_ms=gather_bwd_row["plain_ms"],
+        bound_ms=gather_bwd_row["bound_ms"], bound_by=gather_bwd_row["bound_by"],
+        bound_share=gather_bwd_row["bound_share"], library_ms=gather_bwd_row["library_ms"]),
+        dict(
         # times: the 11 forward convs of a bfloat16 register call, summed;
         # train_step_conv: the 11 forward and 10 input-gradient convs of a
         # float32 train step
@@ -2078,6 +2736,12 @@ def main(argv=None) -> int:
         bound_ms=conv_serving["bound_ms"], bound_by=conv_serving["bound_by"],
         library_ms=conv_serving["library_ms"], register_conv_ms_per_pair=conv_ms,
         train_step_conv=conv_train, tensor_core_instructions=hmma)]
+    log("summary: " + json.dumps(dict(
+        sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
+        prefetch=prefetch,
+        unet_remat={("conv_kernel" if k else "cudnn"): {
+            key: {("on" if r else "off"): x for r, x in val.items()} for key, val in v.items()}
+            for k, v in unet_remat.items()})))
     log(f"\ntotal {time.perf_counter() - t_all:.2f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

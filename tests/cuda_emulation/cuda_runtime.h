@@ -9,6 +9,7 @@
 // copies, and tensor_core.cuh for csrc/tensor_core.cuh.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <thread>
@@ -57,6 +58,10 @@ static cudaError_t cudaGetLastError() { return cudaSuccess; }
 // rounded apart: no fused multiply-add, as the intrinsics promise
 static float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+// atomic read-modify-writes of device memory, here of host memory shared by
+// the block's threads
+static int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+static float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 // 1 + the index of the lowest set bit, 0 for 0
 static int __ffs(int x) { return __builtin_ffs(x); }
 static int __ffsll(long long x) { return __builtin_ffsll(x); }

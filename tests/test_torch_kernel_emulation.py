@@ -93,10 +93,12 @@ def conv_kernel(tmp_path_factory):
 
 
 def _call(lib, name, *args):
+    """Call the entry point ``name`` with ``args`` (the stream last) and no
+    tier word: an unconditional launch, counted nowhere."""
     fn = getattr(lib, name)
     fn.argtypes = warp_bounded_ops._ARGTYPES[name]
     fn.restype = ctypes.c_int
-    return fn(*args)
+    return fn(*args[:-1], None, 0, None, args[-1])
 
 
 def _case(batch, spatial, nch, halo):

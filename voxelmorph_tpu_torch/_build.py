@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel sources of the package, by library name.
-SOURCES = {"warp_bounded": _SRC / "warp_bounded.cu", "conv3": _SRC / "conv3.cu"}
+SOURCES = {"warp_bounded": _SRC / "warp_bounded.cu", "warp_gather": _SRC / "warp_gather.cu",
+           "conv3": _SRC / "conv3.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _ENTRY_POINTS: Dict[Tuple[str, str], Any] = {}

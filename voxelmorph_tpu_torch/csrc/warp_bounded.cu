@@ -77,6 +77,20 @@ __device__ __forceinline__ float dtri(float t) {
   return fabsf(t) < 1.f ? (t > 0.f ? -1.f : (t < 0.f ? 1.f : 0.f)) : 0.f;
 }
 
+// The tier word of a predicated launch (ops/warp.py launches every branch
+// of the tiered warp with the same device word, JAX's lax.switch index):
+// the kernel runs only where the word names `serve`, or unconditionally
+// when there is no word. Read before any staging or barrier, so a branch
+// that is not taken returns at once and writes nothing. One thread of the
+// first block counts the launches that ran in `worked` (if not null).
+__device__ __forceinline__ bool selected(const int* tier, int serve, int* worked) {
+  if (tier != nullptr && *tier != serve) return false;
+  if (worked != nullptr && (blockIdx.x | blockIdx.y | blockIdx.z) == 0 &&
+      (threadIdx.x | threadIdx.y) == 0)
+    atomicAdd(worked, 1);
+  return true;
+}
+
 // Offset (in floats) of a staged row's first voxel inside its shared row:
 // the global address of the row's first voxel modulo 16 bytes, so that the
 // row copies 16 bytes at a time; for C = 2 and 4 rounded down to a multiple
@@ -169,18 +183,31 @@ int plan_runs(int B, int D, int H, int W, int resident, int* run_len) {
 // The blocks of `kernel` (of `threads` threads and `smem` bytes of dynamic
 // shared memory) that the current device holds at once, after raising the
 // kernel's shared-memory limit to `smem`. 0 and the error if that fails.
+// `cache` (one slot per device, zero until the first launch there) keeps
+// the answer, so that only a kernel's first launch on a device asks the CUDA
+// runtime: a tiered warp launches every branch's kernel each time.
+constexpr int kMaxDevices = 64;
+
 template <class K>
-cudaError_t resident_blocks(K kernel, int threads, int smem, int* blocks) {
+cudaError_t resident_blocks(K kernel, int threads, int smem, int* blocks,
+                            int (&cache)[kMaxDevices]) {
   *blocks = 0;
   int device, sms, per_sm;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && cache[device] > 0) {
+    *blocks = cache[device];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err == cudaSuccess) *blocks = sms * per_sm;
+  if (err == cudaSuccess) {
+    *blocks = sms * per_sm;
+    if (device < kMaxDevices) cache[device] = *blocks;
+  }
   return err;
 }
 
@@ -239,7 +266,8 @@ __global__ void __launch_bounds__(TX * FwdTile<C, HALO>::WARPS,
 warp_bounded_fwd_kernel(const float* __restrict__ vol,
                         const float* __restrict__ shift,
                         float* __restrict__ out, int D, int H, int W, int runs,
-                        int run_len) {
+                        int run_len, const int* tier, int serve, int* worked) {
+  if (!selected(tier, serve, worked)) return;
   using T = FwdTile<C, HALO>;
   constexpr int R = T::R, S = T::S, EY = T::EY, VP = T::VP, TY = T::TY, NW = T::WARPS;
   extern __shared__ __align__(16) float tile[];
@@ -381,12 +409,14 @@ warp_bounded_fwd_kernel(const float* __restrict__ vol,
 
 template <int C, int HALO>
 cudaError_t launch(const float* vol, const float* shift, float* out, int B,
-                   int D, int H, int W, cudaStream_t stream) {
+                   int D, int H, int W, const int* tier, int serve, int* worked,
+                   cudaStream_t stream) {
   using T = FwdTile<C, HALO>;
   const int smem = T::kBytes;
+  static int cache[kMaxDevices];
   int resident, run_len;
   const cudaError_t err =
-      resident_blocks(warp_bounded_fwd_kernel<C, HALO>, TX * T::WARPS, smem, &resident);
+      resident_blocks(warp_bounded_fwd_kernel<C, HALO>, TX * T::WARPS, smem, &resident, cache);
   if (err != cudaSuccess) return err;
   const int runs = plan_runs<T>(B, D, H, W, resident, &run_len);
   if ((long long)B * runs > 65535 || (H + T::TY - 1) / T::TY > 65535)
@@ -394,7 +424,7 @@ cudaError_t launch(const float* vol, const float* shift, float* out, int B,
   const dim3 grid((W + TX - 1) / TX, (H + T::TY - 1) / T::TY, B * runs);
   const dim3 block(TX, T::WARPS);
   warp_bounded_fwd_kernel<C, HALO><<<grid, block, smem, stream>>>(
-      vol, shift, out, D, H, W, runs, run_len);
+      vol, shift, out, D, H, W, runs, run_len, tier, serve, worked);
   return cudaGetLastError();
 }
 
@@ -534,7 +564,9 @@ warp_bounded_bwd_kernel(const float* __restrict__ vol,
                         const float* __restrict__ shift,
                         const float* __restrict__ g,
                         float* __restrict__ dvol, float* __restrict__ dshift,
-                        int D, int H, int W, int runs, int run_len) {
+                        int D, int H, int W, int runs, int run_len,
+                        const int* tier, int serve, int* worked) {
+  if (!selected(tier, serve, worked)) return;
   using T = BwdTile<C, HALO>;
   constexpr int R = T::R, S = T::S, EX = T::EX, EY = T::EY, N = T::N, TY = T::TY;
   constexpr int CP = T::CP, VP = T::VP, SP = T::SP, K = T::K;
@@ -777,12 +809,13 @@ warp_bounded_bwd_kernel(const float* __restrict__ vol,
 template <int C, int HALO>
 cudaError_t launch_bwd(const float* vol, const float* shift, const float* g,
                        float* dvol, float* dshift, int B, int D, int H, int W,
-                       cudaStream_t stream) {
+                       const int* tier, int serve, int* worked, cudaStream_t stream) {
   using T = BwdTile<C, HALO>;
   const int smem = T::kBytes;
+  static int cache[kMaxDevices];
   int resident, run_len;
   const cudaError_t err =
-      resident_blocks(warp_bounded_bwd_kernel<C, HALO>, TX * T::TY, smem, &resident);
+      resident_blocks(warp_bounded_bwd_kernel<C, HALO>, TX * T::TY, smem, &resident, cache);
   if (err != cudaSuccess) return err;
   const int runs = plan_runs<T>(B, D, H, W, resident, &run_len);
   if ((long long)B * runs > 65535 || (H + T::TY - 1) / T::TY > 65535)
@@ -790,7 +823,7 @@ cudaError_t launch_bwd(const float* vol, const float* shift, const float* g,
   const dim3 grid((W + TX - 1) / TX, (H + T::TY - 1) / T::TY, B * runs);
   const dim3 block(TX, T::TY);
   warp_bounded_bwd_kernel<C, HALO><<<grid, block, smem, stream>>>(
-      vol, shift, g, dvol, dshift, D, H, W, runs, run_len);
+      vol, shift, g, dvol, dshift, D, H, W, runs, run_len, tier, serve, worked);
   return cudaGetLastError();
 }
 
@@ -830,18 +863,25 @@ bool bad_shape(int B, int D, int H, int W, int C, int h) {
 }  // namespace
 
 // Plain C entry point for ctypes. Takes 1 <= C <= 4 channels and a halo
-// 1 <= h <= 4, and refuses others. Launches on `stream` and does not
-// synchronise; returns the CUDA error of the launch (0 on success).
+// 1 <= h <= 4, and refuses others. `tier` (a device int, or null to run
+// unconditionally) and `serve`: the kernel runs only where *tier == serve;
+// `worked` (a device int, or null) counts the launches that ran. Launches
+// on `stream` and does not synchronise; returns the CUDA error of the
+// launch (0 on success).
 extern "C" int vxm_warp_bounded_fwd(const void* vol, const void* shift,
                                     void* out, int B, int D, int H, int W,
-                                    int C, int h, void* stream) {
+                                    int C, int h, const void* tier, int serve,
+                                    void* worked, void* stream) {
   if (bad_shape(B, D, H, W, C, h)) return (int)cudaErrorInvalidValue;
   const float* v = static_cast<const float*>(vol);
   const float* s = static_cast<const float*>(shift);
   float* o = static_cast<float*>(out);
+  const int* t = static_cast<const int*>(tier);
+  int* wk = static_cast<int*>(worked);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)dispatch(C, h, [&](auto c, auto hh) {
-    return launch<decltype(c)::value, decltype(hh)::value>(v, s, o, B, D, H, W, st);
+    return launch<decltype(c)::value, decltype(hh)::value>(v, s, o, B, D, H, W, t, serve, wk,
+                                                           st);
   });
 }
 
@@ -849,11 +889,12 @@ extern "C" int vxm_warp_bounded_fwd(const void* vol, const void* shift,
 // Plain C entry point for ctypes: the VJP of vxm_warp_bounded_fwd. vol and
 // g are (B, D, H, W, C), shift (B, D, H, W, 3), f32, contiguous; dvol and
 // dshift have the shapes of vol and shift and are fully written. Takes the
-// channels and halos of the forward. Launches on `stream` and does not
-// synchronise; returns the CUDA error of the launch.
+// channels and halos of the forward, and its tier word. Launches on
+// `stream` and does not synchronise; returns the CUDA error of the launch.
 extern "C" int vxm_warp_bounded_bwd(const void* vol, const void* shift,
                                     const void* g, void* dvol, void* dshift,
                                     int B, int D, int H, int W, int C, int h,
+                                    const void* tier, int serve, void* worked,
                                     void* stream) {
   if (bad_shape(B, D, H, W, C, h)) return (int)cudaErrorInvalidValue;
   const float* v = static_cast<const float*>(vol);
@@ -861,8 +902,11 @@ extern "C" int vxm_warp_bounded_bwd(const void* vol, const void* shift,
   const float* gg = static_cast<const float*>(g);
   float* dv = static_cast<float*>(dvol);
   float* ds = static_cast<float*>(dshift);
+  const int* t = static_cast<const int*>(tier);
+  int* wk = static_cast<int*>(worked);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)dispatch(C, h, [&](auto c, auto hh) {
-    return launch_bwd<decltype(c)::value, decltype(hh)::value>(v, s, gg, dv, ds, B, D, H, W, st);
+    return launch_bwd<decltype(c)::value, decltype(hh)::value>(v, s, gg, dv, ds, B, D, H, W, t,
+                                                               serve, wk, st);
   });
 }

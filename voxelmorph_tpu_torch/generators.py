@@ -90,15 +90,19 @@ def scan_to_scan(vol_names, bidir=False, batch_size=1, prob_same=0, no_warp=Fals
 
 
 def scan_to_atlas(vol_names, atlas, bidir=False, batch_size=1, no_warp=False,
-                  rng=None, **kwargs):
+                  segs=None, rng=None, **kwargs):
     """Random scans registered to a fixed atlas ``(1, *S, C)``: inputs
-    [scan, atlas], outputs [atlas(, scan)](, zero flow)."""
+    [scan, atlas], outputs [atlas(, scan)](, zero flow). With ``segs`` (as
+    ``volgen`` takes it) the first output is the scan's segmentation
+    instead of the atlas."""
     flow = _zero_flow(batch_size, atlas.shape[1:-1])
     atlas = np.repeat(atlas, batch_size, axis=0)
-    gen = volgen(vol_names, batch_size=batch_size, rng=rng, **kwargs)
+    gen = volgen(vol_names, batch_size=batch_size, segs=segs, rng=rng, **kwargs)
     while True:
-        scan = next(gen)[0]
-        outputs = [atlas, scan] if bidir else [atlas]
+        loaded = next(gen)
+        scan = loaded[0]
+        first = loaded[1] if segs else atlas
+        outputs = [first, scan] if bidir else [first]
         if not no_warp:
             outputs = outputs + [flow]
         yield ([scan, atlas], outputs)

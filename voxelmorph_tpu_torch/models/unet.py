@@ -23,6 +23,13 @@ kernel's channels-last memory layout (``torch.channels_last_3d``) from its
 input to its output, in the forward and the backward: the max pool, the
 nearest upsampling and the skip concatenation all keep it, so a
 channels-last input is never copied to another layout.
+
+``remat`` (the default, as the JAX package's ``Unet.remat``) recomputes each
+conv block in the backward pass instead of keeping its intermediates
+(``torch.utils.checkpoint``, JAX's ``nn.remat(ConvBlock)``): the same values
+and parameters, less memory, one more forward of each block. It applies
+only while autograd records, so serving under ``torch.no_grad`` pays
+nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv3
 from ..py.utils import default_unet_features
@@ -103,9 +111,10 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, ndims: int = 3,
                  dtype=torch.float32, do_res: bool = False, include_activation: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, strides: int = 1):
         super().__init__()
         self.ndims = ndims
+        self.strides = int(strides)
         self.dtype = dtype
         self.do_res = do_res
         self.include_activation = include_activation
@@ -123,26 +132,38 @@ class ConvBlock(nn.Module):
         """The weight in the JAX layout ``(*k, ci, co)``, in ``dtype``."""
         return self.conv.weight.permute(*range(2, self.ndims + 2), 1, 0).to(self.dtype)
 
-    def _flax_conv(self, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """flax's Conv on cuDNN: the convolution in ``dtype``, then the bias."""
-        out = getattr(F, f"conv{self.ndims}d")(x, conv.weight.to(self.dtype), padding=1)
+    def _flax_conv(self, conv: nn.Module, x: torch.Tensor, strides: int = 1) -> torch.Tensor:
+        """flax's Conv on cuDNN: the convolution in ``dtype``, then the bias.
+        With ``strides`` > 1, SAME padding as XLA places it: ``ceil(n / s)``
+        outputs, the padding's odd voxel at the high end."""
+        fn = getattr(F, f"conv{self.ndims}d")
+        weight = conv.weight.to(self.dtype)
+        if strides == 1:
+            out = fn(x, weight, padding=1)
+        else:
+            pads = []
+            for n in reversed(x.shape[2:]):
+                total = max((-(-n // strides) - 1) * strides + 3 - n, 0)
+                pads += [total // 2, total - total // 2]
+            out = fn(F.pad(x, pads), weight, stride=strides)
         return out + conv.bias.to(self.dtype).view(-1, *([1] * self.ndims))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         fused = self.include_activation and not self.do_res
         slope = 0.2 if fused else None
-        if conv3.pallas_conv_enabled() and self.ndims == 3 and x.dim() == 5:
+        if conv3.pallas_conv_enabled() and self.ndims == 3 and self.strides == 1 \
+                and x.dim() == 5:
             nbytes = x.element_size()
             takes = conv3.jax_kernel_takes(x.shape[1], self.conv.out_channels, *x.shape[2:],
                                            nbytes, nbytes)
             out = conv3.conv3_same_cf(x, self._jax_kernel(), self.conv.bias.to(self.dtype),
                                       act_slope=slope, round_conv_first=not takes)
-        elif conv3.xla_dw_einsum_enabled():
+        elif conv3.xla_dw_einsum_enabled() and self.strides == 1:
             out = conv3.conv3_same_lean_dw(x.movedim(1, -1), self._jax_kernel(),
                                            self.conv.bias.to(self.dtype), slope).movedim(-1, 1)
         else:
-            out = self._flax_conv(self.conv, x)
+            out = self._flax_conv(self.conv, x, self.strides)
             fused = False
         if fused:
             return out
@@ -228,8 +249,10 @@ class Unet(nn.Module):
                  nb_levels: Optional[int] = None, max_pool=2, feat_mult: int = 1,
                  nb_conv_per_level: int = 1, do_res: bool = False, nb_upsample_skips: int = 0,
                  final_activation_function: Optional[str] = None,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None,
+                 remat: bool = True):
         super().__init__()
+        self.remat = remat
         if final_activation_function is not None and \
                 final_activation_function not in ACTIVATIONS:
             raise ValueError(f"unknown final_activation_function '{final_activation_function}'")
@@ -276,6 +299,14 @@ class Unet(nn.Module):
                        not (final_act and num == len(self.final_convs) - 1))
         self.out_features = ch
 
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The conv block ``name`` on ``x``, rematerialised in the backward
+        when ``remat`` and autograd records."""
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+        return block(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ncpl = self.nb_conv_per_level
         # the conv kernel's layout, kept between its convs
@@ -284,18 +315,18 @@ class Unet(nn.Module):
         last = x.to(self.dtype)
         for level in range(self.nb_levels - 1):
             for conv in range(ncpl):
-                last = getattr(self, f"enc_conv_{level}_{conv}")(last)
+                last = self._block(f"enc_conv_{level}_{conv}", last)
             enc_layers.append(last)
             last = max_pool(last, self.max_pool[level], self.ndims, cl)
         for level in range(self.nb_levels - 1):
             real_level = self.nb_levels - level - 2
             for conv in range(ncpl):
-                last = getattr(self, f"dec_conv_{real_level}_{conv}")(last)
+                last = self._block(f"dec_conv_{real_level}_{conv}", last)
             if level < self.nb_levels - 1 - self.nb_upsample_skips:
                 last = _upsample_nearest(last, self.max_pool[real_level], self.ndims, cl)
                 last = torch.cat([last, enc_layers.pop()], dim=1)
         for num in range(len(self.final_convs)):
-            last = getattr(self, f"dec_final_conv_{num}")(last)
+            last = self._block(f"dec_final_conv_{num}", last)
         if self.final_activation_function is not None:
             last = ACTIVATIONS[self.final_activation_function](last)
         return last

@@ -34,10 +34,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-def rescale_flow(flow: torch.Tensor, factor) -> torch.Tensor:
-    """Rescale a (batched) dense flow by a spatial factor (resize + scale)."""
+def rescale_flow(flow: torch.Tensor, factor, batched: bool = True) -> torch.Tensor:
+    """Rescale a dense flow by a spatial factor (resize + scale): a batch
+    ``(B, *S, N)``, or with ``batched=False`` one flow ``(*S, N)``."""
     if factor == 1:
         return flow
+    if batched:
+        return torch.stack([warp_ops.rescale_dense_transform(f, factor) for f in flow])
     return warp_ops.rescale_dense_transform(flow, factor)
 
 

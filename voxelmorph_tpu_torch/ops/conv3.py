@@ -158,7 +158,7 @@ def _epilogue(acc, bias, act_slope, out_dtype, round_conv_first):
     if round_conv_first:
         y = acc.to(out_dtype) + bias.to(out_dtype)
         if act_slope is not None:
-            slope = torch.tensor(act_slope, dtype=out_dtype, device=y.device)
+            slope = torch.tensor(act_slope, dtype=out_dtype)
             y = torch.where(y >= 0, y, y * slope)
         return y
     y = acc + bias
@@ -392,7 +392,9 @@ def _leaky_grad(g, y, act_slope):
     its output (the activation is monotone)."""
     if act_slope is None:
         return g
-    return torch.where(y >= 0, g, g * torch.tensor(act_slope, dtype=g.dtype, device=g.device))
+    # the slope as a 0-dim CPU tensor of g's dtype: the same product as a
+    # device tensor's, with no copy to the device (which would sync the host)
+    return torch.where(y >= 0, g, g * torch.tensor(act_slope, dtype=g.dtype))
 
 
 def _shifted_dw_db(x: torch.Tensor, gf: torch.Tensor):
@@ -520,7 +522,7 @@ def _lean_fwd_raw(x_cf, kernel, bias, act_slope):
     out = out + bias.view(-1, *([1] * nd))
     if act_slope is not None:
         out = torch.where(out >= 0, out,
-                          out * torch.tensor(act_slope, dtype=out.dtype, device=out.device))
+                          out * torch.tensor(act_slope, dtype=out.dtype))
     return out
 
 

@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["ndgrid", "interpn", "resize"]
+__all__ = ["ndgrid", "volshape_to_meshgrid", "interpn", "point_interpn", "resize"]
 
 
 # Above this corner-table footprint (V * 2^N * C * itemsize of the compute
@@ -30,10 +30,21 @@ __all__ = ["ndgrid", "interpn", "resize"]
 _CORNER_TABLE_BYTES_LIMIT = 1 << 30
 
 
-def ndgrid(shape: Sequence[int], dtype=torch.float32, device=None) -> torch.Tensor:
-    """ij-indexed coordinate grid of shape ``(*shape, N)``."""
+def ndgrid(shape: Sequence[int], dtype=torch.float32, device=None, stacked: bool = True):
+    """ij-indexed coordinate grid: ``(*shape, N)``, or with ``stacked=False``
+    the list of its N ``(*shape,)`` coordinate arrays."""
     axes = [torch.arange(s, dtype=dtype, device=device) for s in shape]
-    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    mesh = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack(mesh, dim=-1) if stacked else list(mesh)
+
+
+def volshape_to_meshgrid(shape: Sequence[int], indexing: str = "ij", dtype=torch.float32,
+                         device=None):
+    """The list of ij coordinate arrays of ``shape`` (neurite's name for
+    ``ndgrid(..., stacked=False)``); only ij indexing exists."""
+    if indexing != "ij":
+        raise ValueError("only ij indexing is supported (xy was removed upstream)")
+    return ndgrid(shape, dtype=dtype, device=device, stacked=False)
 
 
 def _flatten_strides(spatial: Sequence[int]) -> list:
@@ -223,6 +234,12 @@ def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
 
     out = out.reshape(*out_shape, nch)
     return out[..., 0] if squeeze_channel else out
+
+
+def point_interpn(vol: torch.Tensor, points: torch.Tensor,
+                  interp_method: str = "linear") -> torch.Tensor:
+    """``vol`` ``(*S, C)`` interpolated at a point cloud ``(M, N)``."""
+    return interpn(vol, points, interp_method=interp_method)
 
 
 def _resize_matrix(n_in: int, n_out: int, factor: float, interp_method: str) -> np.ndarray:

@@ -2,18 +2,24 @@
 
 Counterpart of ``voxelmorph_tpu/ops/warp.py``. A warp whose displacements are
 all within a small halo runs the bounded-warp kernel (``ops.warp_bounded``);
-any other warp runs the general gather (``ops.interp.interpn``). The choice
-is made per call on the host from ``max|shift|``, as the JAX package's
-``lax.switch`` makes it on the device. Every tier is differentiable in the
-volume and the shift: the kernel tiers through the bounded warp's autograd
-Function (its backward kernel on CUDA), the gather through autograd of
-``interpn``. ``transform`` also takes affine matrices and channelwise
+any other warp runs the general gather (``ops.interp.interpn``), by the
+tier index of the JAX package's ``lax.switch`` on ``max|shift|``. On CUDA
+tensors the index stays on the device: every branch's kernel is launched
+with it and only the one it names runs (``_TieredWarp``: the halo-1 and
+full-halo bounded kernels, then the gather kernel of ``ops.warp_gather``),
+forward and backward, so a warp never waits for the host. On the CPU the
+host reads the index and runs that branch's plain version. Every tier is
+differentiable in the volume and the shift: on the CPU the kernel tiers
+through the bounded warp's autograd Function, the gather through autograd
+of ``interpn``; on CUDA the predicated backward kernels compute the same
+VJPs. ``transform`` also takes affine matrices and channelwise
 shifts; ``compose``, ``integrate_vec`` (every method of the JAX package), the
 point-cloud ops and ``jacobian_determinant`` run on the gather, as in JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Sequence
 
@@ -22,7 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .affine import affine_to_dense_shift, is_affine_shape, make_square_affine
 from .interp import interpn, ndgrid, resize
+from . import warp_bounded as _wb
 from .warp_bounded import warp_bounded
+from .warp_gather import launch_gather_bwd, launch_gather_fwd
 
 __all__ = ["transform", "transform_batched", "batch_transform", "compose",
            "integrate_vec", "integrate_vec_batched", "phase_warp_batched",
@@ -53,11 +61,75 @@ def _resolve_halo(window_halo, device) -> Optional[int]:
 def _tiered_windowed_switch(args, windowed_fn, gather_fn, window_halo: int, max_d: float):
     """Dispatch a warp on its displacement bound, choosing the smallest
     sufficient halo: max|d| <= 1 runs the halo-1 kernel, <= window_halo the
-    full-halo kernel, anything larger the gather."""
+    full-halo kernel, anything larger the gather (the CPU's host choice)."""
     for h in sorted({1, int(window_halo)}):
         if max_d <= float(h):
             return windowed_fn(args, h)
     return gather_fn(args)
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds(halos, dtype, device) -> torch.Tensor:
+    """The halos as a tensor of ``dtype`` on ``device``, made there (a fill,
+    not a copy from the host)."""
+    with torch.inference_mode(False):
+        return torch.stack([torch.full((), float(h), dtype=dtype, device=device)
+                            for h in halos])
+
+
+def tier_index(shift: torch.Tensor, halos) -> torch.Tensor:
+    """``sum(max|shift| > h for h in halos)`` as an int32 tensor on the
+    shift's device (the JAX package's ``lax.switch`` index), compared in the
+    shift's dtype, with no host synchronisation."""
+    max_d = torch.linalg.vector_norm(shift.detach(), ord=float("inf"))
+    return (max_d > _thresholds(tuple(halos), shift.dtype, shift.device)).sum(
+        dtype=torch.int32)
+
+
+class _TieredWarp(torch.autograd.Function):
+    """The tiered warp of vol ``(B, D, H, W, C)`` by shift ``(B, D, H, W, 3)``
+    on CUDA tensors: the tier index is computed on the device, and the
+    bounded kernel at each of ``halos`` and then the gather kernel are
+    launched with it, each running only where the index names it, into one
+    output buffer. The backward launches the predicated backward kernels
+    with the saved index, the branch the forward took (``lax.switch``'s
+    VJP)."""
+
+    @staticmethod
+    def forward(ctx, vol, shift, halos):
+        v, s = _wb._f32(vol), _wb._f32(shift)
+        tier = tier_index(shift, halos)
+        out = torch.empty_like(v)
+        for i, h in enumerate(halos):
+            _wb.launch_bounded_fwd(v, s, out, h, tier, i)
+        launch_gather_fwd(v, s, out, tier, len(halos))
+        ctx.halos = halos
+        ctx.save_for_backward(vol, shift, tier)
+        return out.to(torch.promote_types(vol.dtype, shift.dtype))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        vol, shift, tier = ctx.saved_tensors
+        v, s, gg = _wb._f32(vol), _wb._f32(shift), _wb._f32(g)
+        dvol, dshift = torch.empty_like(v), torch.empty_like(s)
+        for i, h in enumerate(ctx.halos):
+            _wb.launch_bounded_bwd(v, s, gg, dvol, dshift, h, tier, i)
+        launch_gather_bwd(v, s, gg, dvol, dshift, tier, len(ctx.halos))
+        return dvol.to(vol.dtype), dshift.to(shift.dtype), None
+
+
+def _tiered_warp(vols: torch.Tensor, shifts: torch.Tensor, window_halo: int) -> torch.Tensor:
+    """The tiered warp of a batch (one tier for the whole batch): on CUDA
+    with the index on the device, on the CPU by the host's choice."""
+    if vols.device.type == "cuda":
+        return _TieredWarp.apply(vols, shifts, tuple(sorted({1, int(window_halo)})))
+
+    def gather(args):
+        return torch.stack([transform(v, s, window_halo=None) for v, s in zip(*args)])
+
+    return _tiered_windowed_switch((vols, shifts), lambda a, h: warp_bounded(a[0], a[1], h),
+                                   gather, window_halo, shifts.abs().max().item())
 
 
 def _use_window(window_halo, interp_method, fill_value, vols, shifts, batched) -> bool:
@@ -128,9 +200,7 @@ def transform(vol: torch.Tensor, loc_shift: torch.Tensor, interp_method: str = "
 
     window_halo = _resolve_halo(window_halo, vol.device)
     if _use_window(window_halo, interp_method, fill_value, vol, loc_shift, batched=False):
-        out = _tiered_windowed_switch(
-            (vol, loc_shift), lambda a, h: warp_bounded(a[0][None], a[1][None], h)[0],
-            gather, window_halo, loc_shift.abs().max().item())
+        out = _tiered_warp(vol[None], loc_shift[None], window_halo)[0]
     else:
         out = gather((vol, loc_shift))
     return out[..., 0] if squeeze_channel else out
@@ -149,9 +219,7 @@ def transform_batched(vols: torch.Tensor, shifts: torch.Tensor, interp_method: s
     window_halo = _resolve_halo(window_halo, vols.device)
     if not _use_window(window_halo, interp_method, fill_value, vols, shifts, batched=True):
         return gather((vols, shifts))
-    return _tiered_windowed_switch(
-        (vols, shifts), lambda a, h: warp_bounded(a[0], a[1], h), gather,
-        window_halo, shifts.abs().max().item())
+    return _tiered_warp(vols, shifts, window_halo)
 
 
 def integrate_vec_batched(vec: torch.Tensor, nb_steps: int = 7, remat: bool = True,
@@ -197,8 +265,12 @@ def phase_warp_batched(vols: torch.Tensor, root: torch.Tensor, full_flow: torch.
     up to interpolation error (each application resamples the image). Each
     application is ``warp_bounded`` at ``halo`` (the CUDA kernel on CUDA
     tensors). When max|root| exceeds ``halo`` it warps once by ``full_flow``
-    through the gather instead, the exact result. Returns float32.
+    through the gather instead, the exact result: JAX's ``lax.cond``, on
+    CUDA tensors with the condition on the device (``_PhaseWarp``). Returns
+    float32.
     """
+    if vols.device.type == "cuda":
+        return _PhaseWarp.apply(vols, root, full_flow, int(n_apps), int(halo))
     if root.abs().max().item() <= float(halo):
         out = vols
         for _ in range(n_apps):
@@ -206,6 +278,52 @@ def phase_warp_batched(vols: torch.Tensor, root: torch.Tensor, full_flow: torch.
         return out.to(torch.float32)
     return torch.stack([transform(v, f, window_halo=None)
                         for v, f in zip(vols, full_flow)]).to(torch.float32)
+
+
+class _PhaseWarp(torch.autograd.Function):
+    """``phase_warp_batched`` on CUDA tensors: the branch index (0 where
+    max|root| <= halo, else 1) stays on the device; the fast branch's
+    ``n_apps`` bounded warps and the slow branch's gather are all launched
+    with it, the last application and the gather into one output buffer,
+    and only the named branch runs. The backward runs the same branch's
+    predicated backward kernels; the gradient of the branch not taken is
+    zero, as for ``lax.cond``."""
+
+    @staticmethod
+    def forward(ctx, vols, root, full_flow, n_apps, halo):
+        v, r, f = _wb._f32(vols), _wb._f32(root), _wb._f32(full_flow)
+        tier = tier_index(root, (halo,))
+        out = torch.empty_like(v)
+        xs = [v]
+        for k in range(n_apps):
+            dst = out if k == n_apps - 1 else torch.empty_like(v)
+            _wb.launch_bounded_fwd(xs[-1], r, dst, halo, tier, 0)
+            xs.append(dst)
+        launch_gather_fwd(v, f, out, tier, 1)
+        ctx.halo = halo
+        ctx.dtypes = vols.dtype, root.dtype, full_flow.dtype
+        ctx.save_for_backward(*xs[:-1], r, f, tier)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        *xs, r, f, tier = ctx.saved_tensors
+        gg = _wb._f32(g)
+        dvols = torch.empty_like(xs[0])
+        droot = None
+        for k in reversed(range(len(xs))):
+            dx = dvols if k == 0 else torch.empty_like(xs[0])
+            dr = torch.empty_like(r)
+            _wb.launch_bounded_bwd(xs[k], r, gg, dx, dr, ctx.halo, tier, 0)
+            droot = dr if droot is None else droot + dr
+            gg = dx
+        dfull = torch.empty_like(f)
+        launch_gather_bwd(xs[0], f, _wb._f32(g), dvols, dfull, tier, 1)
+        droot = torch.where(tier == 0, droot, torch.zeros_like(droot))
+        dfull = torch.where(tier == 1, dfull, torch.zeros_like(dfull))
+        dt_v, dt_r, dt_f = ctx.dtypes
+        return dvols.to(dt_v), droot.to(dt_r), dfull.to(dt_f), None, None
 
 
 def rescale_dense_transform(trf: torch.Tensor, factor, interp_method: str = "linear") -> torch.Tensor:

@@ -12,6 +12,9 @@ ops (the port of ``voxelmorph_tpu.ops.warp.windowed_transform``), and
 (the port of ``_warp_cf_bwd_ref``). ``warp_bounded`` is differentiable: on
 CUDA tensors its forward and backward run the hand-written kernels of
 ``csrc/warp_bounded.cu``, on CPU tensors the two plain versions.
+``launch_bounded_fwd`` and ``launch_bounded_bwd`` launch the kernels
+predicated on a device word (the tiered warp of ``ops/warp.py``), and
+``work_counter`` holds the device counts of the launches that ran.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from .. import _build
 from .interp import ndgrid
 
 __all__ = ["windowed_transform", "warp_bounded_bwd_plain", "warp_bounded",
-           "warp_bounded_bwd"]
+           "warp_bounded_bwd", "launch_bounded_fwd", "launch_bounded_bwd", "work_counter",
+           "read_work", "reset_work", "WORK_SLOTS"]
 
 # the most channels the kernels take
 MAX_CHANNELS = 4
@@ -156,21 +160,60 @@ def warp_bounded_bwd_plain(vol: torch.Tensor, loc_shift: torch.Tensor, g: torch.
 
 
 # ctypes types of the entry points' arguments: the tensors, B, D, H, W, C,
-# the halo and the stream
-_ARGTYPES = {name: [ctypes.c_void_p] * n + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the halo, the tier word, the branch it serves, the work counter and the
+# stream
+_ARGTYPES = {name: [ctypes.c_void_p] * n + [ctypes.c_int] * 6
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
              for name, n in (("vxm_warp_bounded_fwd", 3), ("vxm_warp_bounded_bwd", 5))}
 
+# The device counters of the warp kernels' launches that ran (past their
+# tier word), one int32 each, by kernel; read once after a run
+# (``read_work``), so that counting costs no host synchronisation.
+WORK_SLOTS = ("warp_bounded_fwd", "warp_bounded_bwd", "warp_gather_fwd", "warp_gather_bwd")
+_WORK = {}
 
-def _launch(name: str, tensors, halo: int) -> None:
+
+def _work_counters(device) -> torch.Tensor:
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    counters = _WORK.get(index)
+    if counters is None:
+        counters = torch.zeros(len(WORK_SLOTS), dtype=torch.int32,
+                               device=torch.device("cuda", index))
+        _WORK[index] = counters
+    return counters
+
+
+def work_counter(device, kernel: str) -> int:
+    """The device address of ``kernel``'s counter of launches that ran."""
+    return _work_counters(device).data_ptr() + 4 * WORK_SLOTS.index(kernel)
+
+
+def read_work(device="cuda") -> dict:
+    """The launches of each warp kernel that ran since ``reset_work``; one
+    host fetch."""
+    return dict(zip(WORK_SLOTS, _work_counters(device).tolist()))
+
+
+def reset_work(device="cuda") -> None:
+    _work_counters(device).zero_()
+
+
+def _launch(name: str, tensors, halo: int, tier, serve: int) -> None:
     """Launch the kernel entry point ``name`` of ``csrc/warp_bounded.cu`` on
     the current stream: ``tensors`` are its float32 inputs then outputs, the
-    first shaped (B, D, H, W, C). Raises if the launch fails."""
+    first shaped (B, D, H, W, C); it runs where the device word ``tier`` (an
+    int32 tensor, or None for always) equals ``serve``. Raises if the launch
+    fails."""
     B, D, H, W, C = tensors[0].shape
     fn = _build.entry_point("warp_bounded", name, _ARGTYPES[name])
     device = tensors[0].device
+    slot = "warp_bounded_fwd" if name == "vxm_warp_bounded_fwd" else "warp_bounded_bwd"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, int(halo), stream)
+        err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, int(halo),
+                 None if tier is None else tier.data_ptr(), int(serve),
+                 work_counter(device, slot), stream)
     if err != 0:
         raise RuntimeError(f"{name} CUDA kernel failed to launch: CUDA error {err} "
                            f"(B={B}, D={D}, H={H}, W={W}, C={C}, halo={halo})")
@@ -180,12 +223,33 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
+def launch_bounded_fwd(vol: torch.Tensor, shift: torch.Tensor, out: torch.Tensor, halo: int,
+                       tier, serve: int) -> None:
+    """Write the bounded warp at ``halo`` of the float32 contiguous ``vol``
+    by ``shift`` into ``out`` where the device word ``tier`` (an int32
+    tensor, or None to run unconditionally) equals ``serve`` (counted on
+    ``warp_bounded.launches``)."""
+    _check(vol, shift, halo)
+    _launch("vxm_warp_bounded_fwd", (vol, shift, out), halo, tier, serve)
+    warp_bounded.launches += 1
+
+
+def launch_bounded_bwd(vol: torch.Tensor, shift: torch.Tensor, g: torch.Tensor,
+                       dvol: torch.Tensor, dshift: torch.Tensor, halo: int, tier,
+                       serve: int) -> None:
+    """Write the bounded warp's VJP at ``halo`` (float32 contiguous tensors)
+    into ``dvol`` and ``dshift`` where the device word ``tier`` equals
+    ``serve`` (counted on ``warp_bounded_bwd.launches``)."""
+    _check(vol, shift, halo)
+    _launch("vxm_warp_bounded_bwd", (vol, shift, g, dvol, dshift), halo, tier, serve)
+    warp_bounded_bwd.launches += 1
+
+
 def _warp_fwd_cuda(vol: torch.Tensor, loc_shift: torch.Tensor, halo: int) -> torch.Tensor:
     """Launch the forward kernel; float32 output."""
     v, s = _f32(vol), _f32(loc_shift)
     out = torch.empty_like(v)
-    _launch("vxm_warp_bounded_fwd", (v, s, out), halo)
-    warp_bounded.launches += 1
+    launch_bounded_fwd(v, s, out, halo, None, 0)
     return out
 
 
@@ -250,8 +314,7 @@ def warp_bounded_bwd(vol: torch.Tensor, loc_shift: torch.Tensor, g: torch.Tensor
         raise ValueError(f"warp_bounded_bwd runs on CUDA or CPU tensors, not {vol.device}")
     v, s = _f32(vol), _f32(loc_shift)
     dvol, dshift = torch.empty_like(v), torch.empty_like(s)
-    _launch("vxm_warp_bounded_bwd", (v, s, _f32(g), dvol, dshift), halo)
-    warp_bounded_bwd.launches += 1
+    launch_bounded_bwd(v, s, _f32(g), dvol, dshift, halo, None, 0)
     return dvol, dshift
 
 

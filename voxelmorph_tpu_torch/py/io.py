@@ -1,7 +1,8 @@
-"""NIfTI-1 volume IO (.nii/.nii.gz) in pure numpy.
+"""NIfTI-1 and FreeSurfer MGH volume IO in pure numpy.
 
-The port's own copy of ``voxelmorph_tpu.py.io.read_nifti`` / ``write_nifti``:
-single-file NIfTI-1 images with sform (or qform) affines.
+The port's own copy of ``voxelmorph_tpu.py.io``: ``read_nifti`` /
+``write_nifti`` (single-file NIfTI-1 images with sform (or qform) affines,
+.nii/.nii.gz) and ``read_mgh`` / ``write_mgh`` (MGH version 1, .mgh/.mgz).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["read_nifti", "write_nifti"]
+__all__ = ["read_nifti", "write_nifti", "read_mgh", "write_mgh"]
 
 # NIfTI-1 datatype codes <-> numpy dtypes
 _NIFTI_DTYPES = {
@@ -21,9 +22,15 @@ _NIFTI_DTYPES = {
 }
 _NIFTI_CODES = {np.dtype(v): k for k, v in _NIFTI_DTYPES.items()}
 
+# MGH data type codes <-> numpy dtypes
+_MGH_UCHAR, _MGH_INT, _MGH_FLOAT, _MGH_SHORT = 0, 1, 3, 4
+_MGH_DTYPES = {_MGH_UCHAR: np.uint8, _MGH_INT: np.int32,
+               _MGH_FLOAT: np.float32, _MGH_SHORT: np.int16}
+_MGH_CODES = {np.dtype(v): k for k, v in _MGH_DTYPES.items()}
+
 
 def _open_maybe_gz(filename: str, mode: str):
-    if filename.endswith(".gz"):
+    if filename.endswith((".gz", ".mgz")):
         return gzip.open(filename, mode)
     return open(filename, mode)
 
@@ -127,3 +134,62 @@ def write_nifti(filename: str, array: np.ndarray, affine: Optional[np.ndarray] =
         f.write(bytes(hdr))
         f.write(b"\x00" * 4)  # extension flag
         f.write(np.asfortranarray(array).tobytes(order="F"))
+
+
+def read_mgh(filename: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Read a FreeSurfer MGH/MGZ volume. Returns (data, affine)."""
+    with _open_maybe_gz(filename, "rb") as f:
+        hdr = f.read(284)
+        version, w, h, d, nframes, mtype, _dof = struct.unpack_from(">7i", hdr, 0)
+        if version != 1:
+            raise ValueError(f"{filename}: unsupported MGH version {version}")
+        if mtype not in _MGH_DTYPES:
+            raise ValueError(f"{filename}: unsupported MGH type {mtype}")
+        good_ras = struct.unpack_from(">h", hdr, 28)[0]
+        affine = None
+        if good_ras > 0:
+            spacing = struct.unpack_from(">3f", hdr, 30)
+            mdc = np.asarray(struct.unpack_from(">9f", hdr, 42)).reshape(3, 3).T
+            pxyz_c = np.asarray(struct.unpack_from(">3f", hdr, 78))
+            shape3 = np.asarray([w, h, d], dtype=np.float64)
+            mdcs = mdc * np.asarray(spacing)
+            affine = np.eye(4)
+            affine[:3, :3] = mdcs
+            affine[:3, 3] = pxyz_c - mdcs @ (shape3 / 2)
+        dtype = np.dtype(_MGH_DTYPES[mtype]).newbyteorder(">")
+        data = np.frombuffer(f.read(), dtype=dtype)
+
+    shape = (w, h, d) if nframes <= 1 else (w, h, d, nframes)
+    count = int(np.prod(shape))
+    return np.asarray(data[:count].reshape(shape, order="F")), affine
+
+
+def write_mgh(filename: str, array: np.ndarray, affine: Optional[np.ndarray] = None):
+    """Write a FreeSurfer MGH/MGZ volume."""
+    array = np.asarray(array)
+    if array.dtype == np.bool_:
+        array = array.astype(np.uint8)
+    if array.dtype not in _MGH_CODES:
+        array = array.astype(np.float32)
+    if array.ndim == 3:
+        shape3, nframes = array.shape, 1
+    elif array.ndim == 4:
+        shape3, nframes = array.shape[:3], array.shape[3]
+    else:
+        raise ValueError("MGH arrays must be 3-D or 4-D")
+
+    hdr = bytearray(284)
+    struct.pack_into(">7i", hdr, 0, 1, *shape3, nframes, _MGH_CODES[array.dtype], 0)
+    if affine is not None:
+        affine = np.asarray(affine, dtype=np.float64)
+        struct.pack_into(">h", hdr, 28, 1)  # goodRASFlag
+        spacing = [float(np.linalg.norm(affine[:3, i])) for i in range(3)]
+        mdc = affine[:3, :3] / np.asarray(spacing)
+        struct.pack_into(">3f", hdr, 30, *spacing)
+        struct.pack_into(">9f", hdr, 42, *mdc.T.reshape(-1))
+        center = affine[:3, :3] @ (np.asarray(shape3, np.float64) / 2) + affine[:3, 3]
+        struct.pack_into(">3f", hdr, 78, *center)
+
+    with _open_maybe_gz(filename, "wb") as f:
+        f.write(bytes(hdr))
+        f.write(array.astype(array.dtype.newbyteorder(">")).tobytes(order="F"))

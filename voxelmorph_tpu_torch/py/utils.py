@@ -2,15 +2,18 @@
 
 The port's own copies of ``voxelmorph_tpu.py.utils.default_unet_features``,
 ``read_file_list``, ``read_pair_list``, ``load_volfile``, ``save_volfile``
-(for NIfTI (.nii/.nii.gz), .npy and .npz volumes), ``pad``, ``resize``,
-``dice`` and ``jacobian_determinant``, and of its segmentation and surface
-helpers (``extract_largest_vol`` to ``sdt_to_surface_pts``), which take
-torch tensors and compute on their device (``py.ndimage``), with the point
+(for NIfTI (.nii/.nii.gz), MGH (.mgh/.mgz), .npy and .npz volumes, or
+preloaded arrays), ``load_labels``, ``load_pheno_csv``, ``pad``, ``resize``,
+``dice``, ``affine_shift_to_matrix`` and ``jacobian_determinant``, and of
+its segmentation and surface helpers (``extract_largest_vol`` to
+``sdt_to_surface_pts``), which take torch tensors and compute on their device (``py.ndimage``), with the point
 draws on a numpy ``Generator`` as in the JAX package.
 """
 
 from __future__ import annotations
 
+import csv
+import glob
 import os
 import pathlib
 
@@ -21,7 +24,7 @@ from . import io as _io
 from . import ndimage as _ndi
 
 __all__ = ["default_unet_features", "read_file_list", "read_pair_list", "load_volfile",
-           "save_volfile", "pad", "resize", "dice", "jacobian_determinant",
+           "save_volfile", "load_labels", "load_pheno_csv", "affine_shift_to_matrix", "pad", "resize", "dice", "jacobian_determinant",
            "extract_largest_vol", "clean_seg", "clean_seg_batch", "filter_labels", "dist_trf",
            "signed_dist_trf", "vol_to_sdt", "vol_to_sdt_batch", "get_surface_pts_per_label",
            "edge_to_surface_pts", "sdt_to_surface_pts"]
@@ -48,19 +51,26 @@ def read_pair_list(filename, delim=None, prefix=None, suffix=None):
 
 def load_volfile(filename, np_var="vol", add_batch_axis=False,
                  add_feat_axis=False, pad_shape=None, resize_factor=1, ret_affine=False):
-    """Load a volume from nii, nii.gz, npz, or npy.
+    """Load a volume from nii, nii.gz, mgz/mgh, npz, or npy.
 
     Returns the array, or ``(array, affine)`` when ``ret_affine`` (the affine
-    is None for numpy files). ``pad_shape`` zero-pads the volume (centred) to
-    that shape; ``add_feat_axis`` appends a channel axis; ``resize_factor``
+    is None for numpy files). A non-string ``filename`` is taken as the
+    volume itself, preloaded: an array, or ``(array, affine)`` when
+    ``ret_affine``. ``pad_shape`` zero-pads the volume (centred) to that
+    shape; ``add_feat_axis`` appends a channel axis; ``resize_factor``
     resizes the spatial axes (nearest); ``add_batch_axis`` prepends a batch
     axis, in that order.
     """
     filename = str(filename) if isinstance(filename, pathlib.PurePath) else filename
-    if not os.path.isfile(filename):
+    if isinstance(filename, str) and not os.path.isfile(filename):
         raise ValueError(f"'{filename}' is not a file.")
-    if filename.endswith((".nii", ".nii.gz")):
+    if not isinstance(filename, str):
+        vol, affine = filename if ret_affine else (filename, None)
+    elif filename.endswith((".nii", ".nii.gz")):
         vol, affine = _io.read_nifti(filename)
+        vol = np.squeeze(vol)
+    elif filename.endswith((".mgz", ".mgh")):
+        vol, affine = _io.read_mgh(filename)
         vol = np.squeeze(vol)
     elif filename.endswith(".npy"):
         vol, affine = np.load(filename), None
@@ -83,10 +93,10 @@ def load_volfile(filename, np_var="vol", add_batch_axis=False,
 
 
 def save_volfile(array, filename, affine=None):
-    """Save to nii, nii.gz, or npz. Default affine is FreeSurfer LIA centered
-    on the volume."""
+    """Save to nii, nii.gz, mgz/mgh, or npz. The default affine of an image
+    file is FreeSurfer's LIA, centred on the volume."""
     filename = str(filename) if isinstance(filename, pathlib.PurePath) else filename
-    if filename.endswith((".nii", ".nii.gz")):
+    if filename.endswith((".nii", ".nii.gz", ".mgz", ".mgh")):
         if affine is None and array.ndim >= 3:
             affine = np.array(
                 [[-1, 0, 0, 0],
@@ -95,11 +105,53 @@ def save_volfile(array, filename, affine=None):
                  [0, 0, 0, 1]], dtype=float)
             pcrs = np.append(np.array(array.shape[:3]) / 2, 1)
             affine[:3, 3] = -np.matmul(affine, pcrs)[:3]
-        _io.write_nifti(filename, array, affine)
+        if filename.endswith((".nii", ".nii.gz")):
+            _io.write_nifti(filename, array, affine)
+        else:
+            _io.write_mgh(filename, array, affine)
     elif filename.endswith(".npz"):
         np.savez_compressed(filename, vol=array)
     else:
         raise ValueError(f"unknown filetype for {filename}")
+
+
+def load_labels(arg, ext=(".nii.gz", ".nii", ".mgz", ".npy", ".npz")):
+    """Integer label maps from files: ``arg`` is a file, a directory, a glob
+    pattern or a list of them. Returns (the sorted unique labels of all the
+    maps, the list of maps); raises if a map is not integral or its shape
+    differs from the first's."""
+    specs = [arg] if isinstance(arg, (str, os.PathLike)) else list(arg)
+    patterns = [os.path.join(s, "*") if os.path.isdir(s) else str(s)
+                for s in map(str, specs)]
+    files = [f for pat in patterns for f in glob.glob(pat) if f.endswith(ext)]
+    if not files:
+        raise ValueError(f'no labels found for argument "{files}"')
+    label_maps = []
+    shape = None
+    for f in files:
+        lab = np.squeeze(load_volfile(f))
+        shape = shape or np.shape(lab)
+        if not np.issubdtype(lab.dtype, np.integer):
+            raise ValueError(f'file "{f}" has non-integral data type')
+        if tuple(lab.shape) != tuple(shape):
+            raise ValueError(f'shape {lab.shape} of file "{f}" is not {shape}')
+        label_maps.append(lab)
+    return np.unique(label_maps), label_maps
+
+
+def load_pheno_csv(filename, training_files=None):
+    """A file name -> attribute vector mapping from a csv with a header row.
+    Returns (the mapping, the file names): with ``training_files``, those of
+    them whose base name has a row, each also a key of the mapping; else the
+    csv's names, sorted."""
+    with open(filename) as fh:
+        rows = list(csv.reader(fh))[1:]
+    pheno = {name: np.asarray(vals, float) for name, *vals in rows if name}
+    if training_files is None:
+        return pheno, sorted(pheno)
+    keep = [path for path in training_files if os.path.basename(path) in pheno]
+    pheno.update({path: pheno[os.path.basename(path)] for path in keep})
+    return pheno, keep
 
 
 def pad(array, shape):
@@ -144,6 +196,25 @@ def dice(array1, array2, labels=None, include_zero=False):
     return scores
 
 
+def affine_shift_to_matrix(trf, resize=None, unshift_shape=None):
+    """A flat 3-D affine shift (12 values, added to the identity's top three
+    rows) as a 4x4 matrix; ``resize`` scales its translation, and
+    ``unshift_shape`` makes it act about the centre of a volume of that
+    shape."""
+    matrix = np.eye(4)
+    matrix[:3] += np.reshape(trf, (3, 4))
+    if resize is not None:
+        matrix[:3, -1] *= resize
+    if unshift_shape is not None:
+        center = (np.asarray(unshift_shape) - 1) / 2
+        to_center = np.eye(4)
+        to_center[:3, 3] = center
+        from_center = np.eye(4)
+        from_center[:3, 3] = -center
+        matrix = to_center @ matrix @ from_center
+    return matrix
+
+
 def jacobian_determinant(disp):
     """Jacobian determinant of a displacement field ``(*vol_shape, N)``,
     N in (2, 3), in numpy: central differences of ``phi = id + disp``
@@ -177,7 +248,10 @@ def clean_seg(x, std=1):
     filled = ~extract_largest_vol(~island)
     smooth = _ndi.gaussian_filter(filled, std)
     size = int(filled.sum().item())
-    thr = -torch.kthvalue(-smooth.reshape(-1), size + 1).values
+    # the (size + 1)-th smallest of -smooth, by a sort: torch.kthvalue's
+    # select over one slice took 0.1 s a call at 160x192x224 on an H100,
+    # 57% of a point-cloud draw (PERF.md); the sort picks the same element
+    thr = -torch.sort(-smooth.reshape(-1)).values[size]
     mask = smooth > thr
     if abs(size - int(mask.sum().item())) > 5:
         raise ValueError("cleaning segmentation failed")

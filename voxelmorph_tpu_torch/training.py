@@ -17,8 +17,11 @@ on the GPU unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import queue
 import re
+import threading
 import time
 from typing import Callable, Dict, Optional, Sequence
 
@@ -29,7 +32,7 @@ from . import resolve_device
 from .models import modelio
 from .py.utils import load_volfile
 
-__all__ = ["LossTerm", "make_loss_fn", "Trainer", "MetricsLogger",
+__all__ = ["LossTerm", "make_loss_fn", "Trainer", "MetricsLogger", "Prefetcher",
            "find_latest_checkpoint", "init_or_resume", "resolve_dtype",
            "device_cached_pair_indices", "device_cached_pair_generator", "load_volume_stack",
            "device_cached_semisupervised_generator"]
@@ -133,6 +136,116 @@ def _optax_order(flat_keys):
     return sorted(flat_keys, key=lambda k: k.split("||"))
 
 
+def _tensors(item):
+    """The tensors of a (nested) batch."""
+    if isinstance(item, torch.Tensor):
+        return [item]
+    if isinstance(item, (tuple, list)):
+        return [t for x in item for t in _tensors(x)]
+    return []
+
+
+class _Failure:
+    """An exception of the producer, carried to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class Prefetcher:
+    """Iterate ``generator`` in a producer thread, ``size`` items ahead
+    through a bounded queue: the same items in the same order (the JAX
+    package's ``prefetch``). An exception in the producer is raised again at
+    the ``next`` that reaches it (JAX's ends the stream instead).
+
+    On a CUDA ``device`` the producer runs on a stream of its own, so that
+    a generator that computes on the card (the point-cloud generator)
+    overlaps the steps on the consumer's stream instead of queueing behind
+    them. The producer's stream first waits for the work queued so far on
+    the consumer's (a generator drawn once before, on the caller's thread,
+    left its state there); then each item carries an event recorded after
+    it was made, the consumer's stream waits for that event, and its
+    tensors are marked as used there (``record_stream``) so that their
+    memory outlives the producer's stream's use. ``close`` stops the thread.
+    """
+
+    _END = object()
+
+    def __init__(self, generator, size: int = 2, device=None):
+        if size < 1:
+            raise ValueError(f"prefetch size must be >= 1, got {size}")
+        self._generator = generator
+        self._queue: "queue.Queue" = queue.Queue(maxsize=size)
+        self._stop = threading.Event()
+        device = torch.device(device) if device is not None else None
+        self._cuda = device is not None and device.type == "cuda"
+        if self._cuda and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self._device = device
+        self._stream = torch.cuda.Stream(device) if self._cuda else None
+        if self._cuda:
+            self._stream.wait_stream(torch.cuda.current_stream(device))
+        self._thread = threading.Thread(target=self._produce, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless stopped; False once stopped."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self):
+        try:
+            if self._cuda:
+                torch.cuda.set_device(self._device)
+            with torch.cuda.stream(self._stream) if self._cuda else contextlib.nullcontext():
+                for item in self._generator:
+                    event = None
+                    if self._cuda:
+                        event = torch.cuda.Event()
+                        event.record(self._stream)
+                    if not self._put((item, event)):
+                        return
+        except BaseException as exc:  # handed to the consumer
+            self._put(_Failure(exc))
+            return
+        self._put(self._END)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        got = self._queue.get()
+        if got is self._END:
+            self._queue.put(got)
+            raise StopIteration
+        if isinstance(got, _Failure):
+            self._queue.put(got)
+            raise got.exc
+        item, event = got
+        if event is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            for t in _tensors(item):
+                if t.is_cuda:
+                    t.record_stream(stream)
+        return item
+
+    def close(self):
+        """Stop the producer thread and wait for it."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._queue.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()
+
+
 class Trainer:
     """Epoch/step training loop with Adam, checkpoints and metrics.
 
@@ -226,17 +339,27 @@ class Trainer:
             initial_epoch: int = 0, model_dir: Optional[str] = None,
             save_freq_epochs: int = 20, save_filename: str = "{epoch:04d}.npz",
             log_fn: Callable[[str], None] = print,
-            metrics_csv: Optional[str] = None) -> Dict[str, float]:
+            metrics_csv: Optional[str] = None, prefetch_size: int = 2) -> Dict[str, float]:
         """Train ``epochs - initial_epoch`` epochs of ``steps_per_epoch``
         steps; log epoch-mean metrics; checkpoint at the start, every
-        ``save_freq_epochs`` epochs and at the end."""
+        ``save_freq_epochs`` epochs and at the end. The generator runs
+        ``prefetch_size`` batches ahead in a thread (``Prefetcher``; 0 runs
+        it inline), as the JAX package's ``fit`` does by default; the thread
+        stops when ``fit`` returns."""
+        gen = Prefetcher(generator, prefetch_size, self.device) if prefetch_size else generator
+
         def run_epoch():
             # reading the epoch's means is its one host fetch of metrics
-            return self._dispatch_mean([self.train_step(*next(generator))
+            return self._dispatch_mean([self.train_step(*next(gen))
                                         for _ in range(steps_per_epoch)])
 
-        return self._run_epochs(run_epoch, epochs, steps_per_epoch, initial_epoch, model_dir,
-                                save_freq_epochs, save_filename, log_fn, metrics_csv)
+        try:
+            return self._run_epochs(run_epoch, epochs, steps_per_epoch, initial_epoch,
+                                    model_dir, save_freq_epochs, save_filename, log_fn,
+                                    metrics_csv)
+        finally:
+            if prefetch_size:
+                gen.close()
 
     def fit_cached_pairs(self, data, epochs: int, steps_per_epoch: int,
                          steps_per_dispatch: int = 0, batch_size: int = 1, bidir: bool = False,
