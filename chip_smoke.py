@@ -8,6 +8,8 @@ Run from the root of the repository:
     python3 chip_smoke.py --compare-warp-source OLD/warp_bounded.cu
         # also time another build of the warp kernels (an earlier commit's
         # csrc/warp_bounded.cu) on phases 2 and 2b's inputs
+    python3 chip_smoke.py --compare-gather-source OLD/warp_gather.cu
+        # also time an earlier commit's gather kernels on phase 2e's inputs
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
@@ -33,13 +35,19 @@ Phases:
      bound, the plain version and cuDNN's conv3d on the same inputs;
   2e. the tiered warp's predicated kernels at each tier of {1, 2} at the
      squaring shape, 1 to 4 channels: every branch launched with the
-     device's tier word into its own NaN-filled buffer, only the named one
+     device's tier word into its own NaN-filled buffer (the gather's dvol,
+     which it adds into, zeroed where it is named), only the named one
      writing, equal to the unpredicated kernel or the torch gather
      (forward and dshift bit for bit, the gather's dvol within 1e-5);
      transform_batched forward and backward through them, with its device
      work counters; its time against the host-chosen call's, the time of a
      launch that returns at once, and the gather kernels against the torch
-     gather and grid_sample;
+     gather and grid_sample, on a smooth field and a rough one, with the
+     backward's atomic adds and the terms it merged into a neighbouring
+     lane's add, and beside any --compare-gather-source build;
+  2e(i). (after phase 3) the gather kernels at the serving warp's shape,
+     160x192x224 with one channel, on a smooth field of the max|d| of
+     phase 3's final warp and on that flow itself, as in 2e;
   3. the serving path end to end: the committed full-width VxmDense
      checkpoint (160x192x224, bfloat16) registers a synthetic smooth pair
      through build_register_fn; the work counters of that call must show a
@@ -152,6 +160,7 @@ from voxelmorph_tpu_torch.models.vxm import (VxmDense, VxmDenseSemiSupervisedPoi
 from voxelmorph_tpu_torch.ops import conv3, interp
 from voxelmorph_tpu_torch.ops import warp as warp_ops
 from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
+from voxelmorph_tpu_torch.ops import warp_gather as warp_gather_ops
 from voxelmorph_tpu_torch.ops.interp import ndgrid, resize
 from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bwd,
                                                    warp_bounded_bwd_plain, windowed_transform)
@@ -454,18 +463,19 @@ def warp_case(rng, batch, spatial, nch, halo):
     return (torch.from_numpy(vol).cuda(), torch.from_numpy(shift).cuda())
 
 
-def build_compare_libraries(sources):
-    """Build each other copy of csrc/warp_bounded.cu (an earlier commit's,
-    unpacked outside the package) with the package's nvcc flags, all at
-    once, into the build directory. Returns {label: ctypes library}."""
-    out = _build.library_path("warp_bounded").parent / "compare"
+def build_compare_libraries(builds, stem):
+    """Build other copies of a kernel source: ``builds`` lists (label,
+    source, extra nvcc flags), an earlier commit's copy unpacked outside the
+    package or the package's own with -D flags; each is built with the
+    package's nvcc flags plus its own, all at once, into the build
+    directory. Returns {label: ctypes library}."""
+    out = _build.library_path(stem).parent / "compare"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, src in enumerate(sources):
-        label = f"{i}:{src}"
-        lib = out / f"libwarp_bounded_{i}.so"
+    for i, (label, src, flags) in enumerate(builds):
+        lib = out / f"lib{stem}_{i}.so"
         procs[label] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for label, (lib, proc) in procs.items():
@@ -2009,7 +2019,7 @@ def wall_ms(fn, reps=20):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def check_tiered_warp(rng):
+def check_tiered_warp(rng, gather_builds, counting):
     """Phase 2e: the predicated warp at each tier of {1, TIER_HALO} at the
     squaring shape, 1 to 4 channels (the gather's dshift adds the channels
     in the order of the card's torch reduction, which differs by channel
@@ -2034,7 +2044,8 @@ def check_tiered_warp(rng):
             outs, grads = [], []
             for serve in range(3):
                 out = torch.full_like(vol, float("nan"))
-                dvol = torch.full_like(vol, float("nan"))
+                # the gather adds into its dvol: zeroed where it is named
+                dvol = torch.full_like(vol, 0.0 if serve == 2 == tier else float("nan"))
                 dshift = torch.full_like(shift, float("nan"))
                 if serve < 2:
                     warp_bounded_ops.launch_bounded_fwd(vol, shift, out, halos[serve], word, serve)
@@ -2092,6 +2103,17 @@ def check_tiered_warp(rng):
                 f"(bounded fwd, gather fwd, bounded bwd, gather bwd) {ran}")
             if not ok or ran != want:
                 raise AssertionError(f"the tiered warp at tier {tier} took another branch")
+            # the same where the volume needs no gradient (the image warp of
+            # a train step): the gather's backward then takes no dvol
+            s = shift.clone().requires_grad_()
+            with window_halo(str(TIER_HALO)):
+                (alone,) = torch.autograd.grad(warp_ops.transform_batched(vol, s), (s,), g)
+            torch.cuda.synchronize()
+            log(f"tier {tier}, C = {nch}: the shift's gradient with no volume gradient equals "
+                f"it with one {torch.equal(alone, got_shift)}")
+            if not torch.equal(alone, got_shift):
+                raise AssertionError(f"the tiered warp at tier {tier}: the shift's gradient "
+                                     f"differs where the volume needs no gradient")
 
             # (c) the predicated call against the host-chosen one, and the
             # device time of each launch that returns at once
@@ -2105,6 +2127,8 @@ def check_tiered_warp(rng):
                 f"read of max|d|, 1 launch); host wall clock, 20 calls")
             if nch == 3 and tier == 0:
                 other = torch.empty_like(vol)
+                # dvol_zero: the fill of the zeroed dvol that the tiered
+                # warp's backward hands its branches (the gather adds into it)
                 skipped = time_in_turns(dict(
                     bounded_fwd=lambda: warp_bounded_ops.launch_bounded_fwd(
                         vol, shift, other, TIER_HALO, word, 1),
@@ -2112,61 +2136,193 @@ def check_tiered_warp(rng):
                         vol, shift, g, other, torch.empty_like(shift), TIER_HALO, word, 1),
                     gather_fwd=lambda: launch_gather_fwd(vol, shift, other, word, 2),
                     gather_bwd=lambda: launch_gather_bwd(vol, shift, g, other,
-                                                         torch.empty_like(shift), word, 2)))
+                                                         torch.empty_like(shift), word, 2),
+                    dvol_zero=lambda: other.zero_(),
+                    **{f"{label} {d}": fn for label, lib in gather_builds.items()
+                       for d, fn in (
+                           ("fwd", lambda lib=lib: gather_compare_launch(
+                               lib, "vxm_warp_gather_fwd", (vol, shift, other), word, 2)),
+                           ("bwd", lambda lib=lib: gather_compare_launch(
+                               lib, "vxm_warp_gather_bwd",
+                               (vol, shift, g, other, torch.empty_like(shift)), word, 2)))}))
                 log(f"device ms of a launch that returns at once, {spatial}, C = 3: "
                     + json.dumps(skipped))
             del vol, shift, g, outs, grads, v, s, got, got_vol, got_shift, ref, ref_vol, ref_shift
+            del alone
 
     # (d) the phase warp (--fast-warp's lax.cond) forward and backward at
     # each branch against the host-chosen composition
     check_phase_warp(rng, spatial)
 
     # (e) the gather kernels at the squaring shape on a smooth field of up to
-    # TIER_HALO + 2 voxels (a late squaring's), against the torch gather and
-    # grid_sample
+    # TIER_HALO + 2 voxels (a late squaring's), and on a rough field of up
+    # to 12 voxels, whose lanes share few corners (few merged adds)
     nch = WARP_CASES[0][2]
     vol = torch.from_numpy(rng.standard_normal((1, *spatial, nch), dtype=np.float32)).cuda()
     shift = smooth_field(rng, spatial, (5, 6, 7), 1.0, "cuda")[None]
     shift = (shift * ((TIER_HALO + 2) / shift.abs().max())).contiguous()
     g = torch.from_numpy(rng.standard_normal(vol.shape, dtype=np.float32)).cuda()
-    out = torch.empty_like(vol)
+    fwd_row, bwd_row = gather_case("squaring shape, smooth", vol, shift, g, gather_builds,
+                                   counting)
+    rough = torch.from_numpy(rng.uniform(-12, 12, size=shift.shape).astype(np.float32)).cuda()
+    rough_rows = gather_case("squaring shape, rough", vol, rough, g, gather_builds, counting)
+    fwd_row["rough"], bwd_row["rough"] = ({k: r[k] for k in (
+        "ms", "kernel_ms", "library_ms", "bound_share", "adds", "merged", "max_abs_err")
+        if k in r}
+        for r in rough_rows)
+    return fwd_row, bwd_row, skipped
+
+
+def gather_serving_shape(rng, warp, builds, counting):
+    """The gather kernels at the serving warp's shape (1, 160, 192, 224, 1):
+    on a smooth field scaled to the max|d| of the register call's final
+    warp (``warp``, phase 3's flow), and on that flow itself. Returns
+    {"smooth": (forward row, backward row), "flow": (...)}."""
+    max_d = warp.abs().max().item()
+    log(f"the register call's final warp (phase 3): max|d| {max_d:.4f} voxels")
+    vol = torch.from_numpy(rng.standard_normal((1, *INSHAPE, 1), dtype=np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal(vol.shape, dtype=np.float32)).cuda()
+    shift = smooth_field(rng, INSHAPE, (5, 6, 7), 1.0, "cuda")[None]
+    shift = (shift * (max_d / shift.abs().max())).contiguous()
+    return {"smooth": gather_case(f"serving shape, smooth, max|d| {max_d:.4f}", vol, shift, g,
+                                  builds, counting),
+            "flow": gather_case("serving shape, phase 3's flow", vol,
+                                warp.float().clone(memory_format=torch.contiguous_format), g,
+                                builds, counting)}
+
+
+def gather_summary(row):
+    """The numbers of a gather_case row that the kernels line carries."""
+    return {k: row[k] for k in ("shape", "max_abs_shift", "ms", "kernel_ms", "ms_no_dvol",
+                                "plain_ms", "library_ms", "bound_ms", "bound_share", "adds",
+                                "merged") if k in row}
+
+
+def gather_compare_launch(lib, name, tensors, tier=None, serve=0):
+    """Launch the entry point ``name`` of another build of
+    csrc/warp_gather.cu on the current stream, as ops/warp_gather.py
+    launches the package's own, counting nothing."""
+    fn = getattr(lib, name)
+    fn.argtypes = warp_gather_ops._ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    B, D, H, W, C = tensors[0].shape
+    err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C,
+             int(warp_gather_ops.is_wide((D, H, W), C)),
+             None if tier is None else tier.data_ptr(), serve, None,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} of another build failed to launch: CUDA error {err}")
+
+
+def gather_case(label, vol, shift, g, builds, counting):
+    """The gather kernels on one input: forward and dshift bit-equal to the
+    torch gather (warp_gather_plain and its autograd VJP) and dvol within
+    GATHER_DVOL_RTOL of its largest magnitude, for the package's build and
+    each other build of ``builds`` ({label: library}); the backward's
+    atomic adds and merged terms (from ``counting``, the package's source
+    built with VXM_GATHER_COUNT: the 8 corner terms of every output added
+    once); then times in turns: the forward kernel; the backward into a
+    zeroed dvol (ms: the fill of the dvol that the kernel adds into, then
+    the kernel, as the tiered warp's backward runs them; kernel_ms: the
+    kernel alone) and with no dvol (ms_no_dvol: the image warp of a train
+    step); grid_sample and its backward; and the other builds, each
+    backward into a zeroed dvol too (the fill timed with it unless the
+    build zeroes dvol itself, as an earlier one did). Returns the
+    forward's and the backward's rows."""
+    nch = vol.shape[-1]
+    spatial = tuple(vol.shape[1:-1])
+    shift = shift.contiguous()
+    out, dshift = torch.empty_like(vol), torch.empty_like(shift)
+    dvol = torch.zeros_like(vol)
     launch_gather_fwd(vol, shift, out)
-    dvol, dshift = torch.empty_like(vol), torch.empty_like(shift)
     launch_gather_bwd(vol, shift, g, dvol, dshift)
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fn = counting.vxm_warp_gather_bwd
+    fn.argtypes = warp_gather_ops._ARGTYPES["vxm_warp_gather_bwd"]
+    B, D, H, W, _ = vol.shape
+    if fn(vol.data_ptr(), shift.data_ptr(), g.data_ptr(), torch.zeros_like(vol).data_ptr(),
+          torch.empty_like(shift).data_ptr(), B, D, H, W, nch,
+          int(warp_gather_ops.is_wide((D, H, W), nch)), None, 0, counts.data_ptr(),
+          torch.cuda.current_stream().cuda_stream) != 0:
+        raise RuntimeError("the counting build of the gather backward failed to launch")
+    adds, merged = counts[1:].tolist()
     ref = warp_gather_plain(vol, shift)
     ref_vol, ref_shift = warp_gather_bwd_plain(vol, shift, g)
-    fwd_err = (out - ref).abs().max().item()
-    bwd_err = max((dvol - ref_vol).abs().max().item(), (dshift - ref_shift).abs().max().item())
+    torch.cuda.synchronize()
+
+    def errors(out, dvol, dshift):
+        return dict(
+            max_abs_err=(out - ref).abs().max().item(),
+            bit_equal=torch.equal(out, ref), dshift_bit_equal=torch.equal(dshift, ref_shift),
+            dshift_max_abs_err=(dshift - ref_shift).abs().max().item(),
+            dvol_rel=((dvol - ref_vol).abs().max() / ref_vol.abs().max()).item())
+
+    own = errors(out, dvol, dshift)
+    others, zeroes = {}, {}
+    for name, lib in builds.items():
+        o, dv, ds = torch.empty_like(vol), torch.full_like(vol, float("nan")), \
+            torch.empty_like(shift)
+        gather_compare_launch(lib, "vxm_warp_gather_fwd", (vol, shift, o))
+        gather_compare_launch(lib, "vxm_warp_gather_bwd", (vol, shift, g, dv, ds))
+        # a build that adds into dvol leaves the NaN; one that zeroes it
+        # first leaves none
+        zeroes[name] = not dv.isnan().any().item()
+        if not zeroes[name]:
+            dv.zero_()
+            gather_compare_launch(lib, "vxm_warp_gather_bwd", (vol, shift, g, dv, ds))
+        torch.cuda.synchronize()
+        others[name] = dict(errors(o, dv, ds), zeroes_dvol=zeroes[name])
     coords = ndgrid(spatial, device="cuda") + shift
     dims = torch.tensor([s - 1 for s in spatial], device="cuda", dtype=torch.float32)
     grid = (2.0 * coords / dims - 1.0).flip(-1).contiguous().requires_grad_()
     vol_cf = vol.movedim(-1, 1).contiguous().requires_grad_()
     out_cf = grid_sample_warp(vol_cf, grid)
     g_cf = g.movedim(-1, 1).contiguous()
-    vox = int(np.prod(spatial))
+    vox = vol.shape[0] * int(np.prod(spatial))
     fwd_bytes, bwd_bytes = (2 * nch + 3) * 4 * vox, (3 * nch + 6) * 4 * vox
-    fwd_row = dict(shape=[1, *spatial, nch], max_abs_err=fwd_err, bit_equal=torch.equal(out, ref),
+    fwd_row = dict(shape=list(vol.shape), max_abs_err=own["max_abs_err"],
+                   bit_equal=own["bit_equal"], max_abs_shift=shift.abs().max().item(),
                    plain_ms=time_cuda_ms(lambda: warp_gather_plain(vol, shift), reps=5, warmup=1),
                    bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-    fwd_row.update(time_in_turns(dict(ms=lambda: launch_gather_fwd(vol, shift, out),
-                                      library_ms=lambda: grid_sample_warp(vol_cf, grid))))
-    bwd_row = dict(shape=[1, *spatial, nch], max_abs_err=bwd_err,
-                   dshift_bit_equal=torch.equal(dshift, ref_shift),
+    bwd_row = dict(shape=list(vol.shape), max_abs_err=max(own["dshift_max_abs_err"],
+                                                          (dvol - ref_vol).abs().max().item()),
+                   dshift_bit_equal=own["dshift_bit_equal"], dvol_rel=own["dvol_rel"],
+                   adds=adds, merged=merged,
                    plain_ms=time_cuda_ms(lambda: warp_gather_bwd_plain(vol, shift, g), reps=5,
                                          warmup=1),
                    bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-    bwd_row.update(time_in_turns(dict(
-        ms=lambda: launch_gather_bwd(vol, shift, g, dvol, dshift),
-        library_ms=lambda: torch.autograd.grad(out_cf, (vol_cf, grid), g_cf,
-                                               retain_graph=True))))
-    for row in (fwd_row, bwd_row):
+    scratch = torch.zeros_like(vol)  # the timed backward adds into it
+    fwd_fns = dict(ms=lambda: launch_gather_fwd(vol, shift, out),
+                   library_ms=lambda: grid_sample_warp(vol_cf, grid))
+    bwd_fns = dict(ms=lambda: (scratch.zero_(),
+                               launch_gather_bwd(vol, shift, g, scratch, dshift)),
+                   kernel_ms=lambda: launch_gather_bwd(vol, shift, g, scratch, dshift),
+                   ms_no_dvol=lambda: launch_gather_bwd(vol, shift, g, None, dshift),
+                   library_ms=lambda: torch.autograd.grad(out_cf, (vol_cf, grid), g_cf,
+                                                          retain_graph=True))
+    for name, lib in builds.items():
+        fwd_fns[name] = lambda lib=lib: gather_compare_launch(
+            lib, "vxm_warp_gather_fwd", (vol, shift, out))
+        bwd_fns[name] = lambda lib=lib, zeroes=zeroes[name]: (
+            None if zeroes else scratch.zero_(),
+            gather_compare_launch(lib, "vxm_warp_gather_bwd", (vol, shift, g, scratch, dshift)))
+    for row, fns in ((fwd_row, fwd_fns), (bwd_row, bwd_fns)):
+        times = time_in_turns(fns)
+        row.update({k: times[k] for k in fns if k not in builds})
         row["bound_share"] = row["bound_ms"] / row["ms"]
-    log("gather forward " + json.dumps(fwd_row))
-    log("gather backward " + json.dumps(bwd_row))
-    if not (fwd_row["bit_equal"] and bwd_row["dshift_bit_equal"]) or \
-            ((dvol - ref_vol).abs().max() / ref_vol.abs().max()).item() > GATHER_DVOL_RTOL:
-        raise AssertionError("the gather kernels differ from the torch gather")
-    return fwd_row, bwd_row, skipped
+        if builds:
+            row["compare"] = {k: dict(ms=times[k], **others[k]) for k in builds}
+    log(f"gather forward, {label}: " + json.dumps(fwd_row))
+    log(f"gather backward, {label} (ms: the fill of the zeroed dvol and the kernel; "
+        f"kernel_ms: the kernel alone): " + json.dumps(bwd_row))
+    for name, e in {"package": own, **others}.items():
+        if not (e["bit_equal"] and e["dshift_bit_equal"]) or not e["dvol_rel"] <= GATHER_DVOL_RTOL:
+            raise AssertionError(f"the gather kernels ({name}) differ from the torch gather "
+                                 f"on the {label} field: {e}")
+    if adds + merged != 8 * vox:
+        raise AssertionError(f"the gather backward added {adds} times and merged {merged} "
+                             f"of the 8 corner terms of {vox} outputs")
+    return fwd_row, bwd_row
 
 
 def check_phase_warp(rng, spatial, n_apps=4, halo=TIER_HALO):
@@ -2549,6 +2705,10 @@ def main(argv=None) -> int:
     parser.add_argument("--compare-warp-source", nargs="+", default=[], metavar="CU",
                         help="other copies of csrc/warp_bounded.cu to build and time "
                              "beside the package's warp kernels in phases 2 and 2b")
+    parser.add_argument("--compare-gather-source", nargs="+", default=[], metavar="CU",
+                        help="other copies of csrc/warp_gather.cu (an earlier commit's) "
+                             "to build and time beside the package's gather kernels in "
+                             "phase 2e")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -2574,7 +2734,16 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if any(key in line for key in ("registers", "smem", "spill", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
-    compare_libs = build_compare_libraries(args.compare_warp_source)
+    compare_libs = build_compare_libraries(
+        [(f"{i}:{src}", src, []) for i, src in enumerate(args.compare_warp_source)],
+        "warp_bounded")
+    gather_builds = build_compare_libraries(
+        [("counting", _build.SOURCES["warp_gather"], ["-DVXM_GATHER_COUNT=1"])]
+        + [(f"source {i}:{src}", src, []) for i, src in enumerate(args.compare_gather_source)],
+        "warp_gather")
+    # the package's kernels built to count the backward's atomic adds and
+    # merged terms (phase 2e's logs; not timed)
+    counting = gather_builds.pop("counting")
     hmma = tensor_core_instructions("conv3")
     log(f"conv3: {hmma} tensor-core instructions (HMMA) in libconv3.so")
     if hmma == 0:
@@ -2599,7 +2768,8 @@ def main(argv=None) -> int:
     log(f"phase 2d: {time.perf_counter() - t:.2f} s")
 
     t = phase("2e. the predicated tiered warp at each tier; the gather kernel")
-    gather_fwd_row, gather_bwd_row, skipped = check_tiered_warp(np.random.default_rng(SEED + 9))
+    gather_fwd_row, gather_bwd_row, skipped = check_tiered_warp(np.random.default_rng(SEED + 9),
+                                                                gather_builds, counting)
     log(f"phase 2e: {time.perf_counter() - t:.2f} s")
 
     t = phase("3. VxmDense registration at full width")
@@ -2611,6 +2781,11 @@ def main(argv=None) -> int:
     bf16_vs_cpu(moved, warp, moving, fixed)
     bf16_vs_f32(moved, warp, *register_f32_vs_cpu(moving, fixed))
     log(f"phase 3: {time.perf_counter() - t:.2f} s")
+
+    t = phase("2e(i). the gather kernels at the serving shape, by phase 3's final flow")
+    serving_gather = gather_serving_shape(np.random.default_rng(SEED + 10), warp, gather_builds,
+                                          counting)
+    log(f"phase 2e(i): {time.perf_counter() - t:.2f} s")
 
     t = phase("3b. VxmDense registration with the conv kernel")
     conv_launches, conv_ms = register_conv_kernel(moving, fixed)
@@ -2711,17 +2886,24 @@ def main(argv=None) -> int:
         skipped_launch_ms=skipped["gather_fwd"], max_abs_err=gather_fwd_row["max_abs_err"],
         ms=gather_fwd_row["ms"], plain_ms=gather_fwd_row["plain_ms"],
         bound_ms=gather_fwd_row["bound_ms"], bound_by=gather_fwd_row["bound_by"],
-        bound_share=gather_fwd_row["bound_share"], library_ms=gather_fwd_row["library_ms"]),
+        bound_share=gather_fwd_row["bound_share"], library_ms=gather_fwd_row["library_ms"],
+        rough=gather_fwd_row["rough"],
+        serving={case: gather_summary(rows[0]) for case, rows in serving_gather.items()}),
         dict(
         name="warp_gather_bwd", route="cuda", source="voxelmorph_tpu_torch/csrc/warp_gather.cu",
         replaces="voxelmorph_tpu/ops/interp.py:301", pallas_counterpart=False,
         launches=point_launches["gather_bwd"], launches_ran=point_launches["gather_bwd_ran"],
         launches_by_path={path: [n["gather_bwd"], n["gather_bwd_ran"]]
                           for path, n in paths.items()},
-        skipped_launch_ms=skipped["gather_bwd"], max_abs_err=gather_bwd_row["max_abs_err"],
-        ms=gather_bwd_row["ms"], plain_ms=gather_bwd_row["plain_ms"],
+        skipped_launch_ms=skipped["gather_bwd"], dvol_zero_ms=skipped["dvol_zero"],
+        max_abs_err=gather_bwd_row["max_abs_err"],
+        ms=gather_bwd_row["ms"], kernel_ms=gather_bwd_row["kernel_ms"],
+        plain_ms=gather_bwd_row["plain_ms"],
         bound_ms=gather_bwd_row["bound_ms"], bound_by=gather_bwd_row["bound_by"],
-        bound_share=gather_bwd_row["bound_share"], library_ms=gather_bwd_row["library_ms"]),
+        bound_share=gather_bwd_row["bound_share"], library_ms=gather_bwd_row["library_ms"],
+        adds=gather_bwd_row["adds"], merged=gather_bwd_row["merged"],
+        rough=gather_bwd_row["rough"],
+        serving={case: gather_summary(rows[1]) for case, rows in serving_gather.items()}),
         dict(
         # times: the 11 forward convs of a bfloat16 register call, summed;
         # train_step_conv: the 11 forward and 10 input-gradient convs of a

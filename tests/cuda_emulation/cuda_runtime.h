@@ -6,12 +6,15 @@
 // are rewritten by the test (tests/test_torch_kernel_emulation.py) into
 // emu_launch(...) and a pointer to emu_shared_memory.
 // <cuda_pipeline_primitives.h> beside it stands in for the asynchronous
-// copies, and tensor_core.cuh for csrc/tensor_core.cuh.
+// copies, and tensor_core.cuh for csrc/tensor_core.cuh. A warp's shuffles
+// and reductions meet at a barrier of the warp's 32 threads.
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -30,7 +33,10 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+thread_local unsigned emu_thread;  // the thread's index in its block
 static std::barrier<>* emu_barrier = nullptr;
+static std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;  // one per warp
+static long long emu_warp_values[1024];
 alignas(128) static float emu_shared_memory[232448 / sizeof(float)];
 
 typedef int cudaError_t;
@@ -62,9 +68,57 @@ static float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 // the block's threads
 static int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 static float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+// the high 32 bits of a 32 x 32-bit product
+static unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)((unsigned long long)a * b >> 32);
+}
 // 1 + the index of the lowest set bit, 0 for 0
 static int __ffs(int x) { return __builtin_ffs(x); }
 static int __ffsll(long long x) { return __builtin_ffsll(x); }
+// A warp's exchanges (shuffles, reductions) meet at a barrier of the
+// warp's 32 threads, all of which call them: each thread posts its value,
+// and reads the others' before any posts again.
+template <class T, class F>
+T emu_warp_exchange(T v, F read) {
+  static_assert(sizeof(T) <= sizeof(long long));
+  const unsigned warp = emu_thread / 32;
+  std::memcpy(&emu_warp_values[emu_thread], &v, sizeof(T));
+  emu_warp_barriers[warp]->arrive_and_wait();
+  auto lane_value = [&](unsigned lane) {
+    T r;
+    std::memcpy(&r, &emu_warp_values[warp * 32 + lane], sizeof(T));
+    return r;
+  };
+  const T r = read(emu_thread % 32, lane_value);
+  emu_warp_barriers[warp]->arrive_and_wait();
+  return r;
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  return emu_warp_exchange(v, [&](unsigned lane, auto value) {
+    return lane >= delta ? value(lane - delta) : v;
+  });
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, unsigned delta) {
+  return emu_warp_exchange(v, [&](unsigned lane, auto value) {
+    return lane + delta < 32 ? value(lane + delta) : v;
+  });
+}
+static int __any_sync(unsigned, int v) {
+  return emu_warp_exchange(v, [](unsigned, auto value) {
+    int any = 0;
+    for (unsigned lane = 0; lane < 32; ++lane) any |= value(lane) != 0;
+    return any;
+  });
+}
+static unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return emu_warp_exchange(v, [](unsigned, auto value) {
+    unsigned sum = 0;
+    for (unsigned lane = 0; lane < 32; ++lane) sum += value(lane);
+    return sum;
+  });
+}
 
 template <class K, class... A>
 void emu_launch(dim3 grid, dim3 block, K kernel, A... args) {
@@ -73,11 +127,15 @@ void emu_launch(dim3 grid, dim3 block, K kernel, A... args) {
   // __syncthreads(), which a thread leaves when it returns from the kernel
   const unsigned n = block.x * block.y * block.z;
   std::barrier<> between(n);
+  emu_warp_barriers.clear();
+  for (unsigned w = 0; w < n; w += 32)
+    emu_warp_barriers.push_back(std::make_unique<std::barrier<>>(std::min(32u, n - w)));
   std::barrier<>* inner = nullptr;
   std::vector<std::thread> threads;
   for (unsigned t = 0; t < n; ++t)
     threads.emplace_back([&, t] {
       threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
+      emu_thread = t;
       blockDim = block;
       gridDim = grid;
       for (unsigned bz = 0; bz < grid.z; ++bz)

@@ -52,10 +52,11 @@ CASES = [(1, (5, 9, 40), 1, 1), (2, (6, 10, 35), 3, 1), (1, (7, 9, 33), 2, 2),
          (1, (17, 6, 33), 1, 3)]
 
 
-def _compile(tmp_path_factory, name, shared, launches):
+def _compile(tmp_path_factory, name, shared, launches, defines=()):
     """Build ``csrc/<name>.cu`` for the CPU: its dynamic shared arrays
     ``shared`` become pointers to the stand-in's buffer and its
-    ``launches`` kernel launches calls of ``emu_launch``."""
+    ``launches`` kernel launches calls of ``emu_launch``; ``defines`` are
+    macros ("NAME=VALUE") set on the compiler's command line."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to compile the CUDA source for the CPU")
@@ -73,7 +74,8 @@ def _compile(tmp_path_factory, name, shared, launches):
     out = tmp_path_factory.mktemp("emulation")
     (out / f"{name}.cpp").write_text(src)
     subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-pthread", "-I", str(SHIM), "-o", str(out / f"lib{name}.so"),
+                    "-pthread", *(f"-D{d}" for d in defines), "-I", str(SHIM),
+                    "-o", str(out / f"lib{name}.so"),
                     str(out / f"{name}.cpp")], check=True, capture_output=True)
     return ctypes.CDLL(str(out / f"lib{name}.so"))
 

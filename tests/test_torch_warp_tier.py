@@ -9,7 +9,8 @@ for the CPU against ``tests/cuda_emulation/`` (as in
 ``test_torch_kernel_emulation.py``) and launched as the tiered warp launches
 them, at each tier, with fields of max|d| <= 1, <= H and > H, coordinates
 exactly on 0 and dim - 1, and 1 to 4 channels. Each kernel writes its own
-NaN-filled buffer: the branches not named must leave theirs untouched, and
+NaN-filled buffer (the gather's dvol, which it adds into, zeroed where the
+gather is named): the branches not named must leave theirs untouched, and
 the named one must equal its plain version, bit for bit (the bounded
 kernels, the gather's forward and its dshift) or, for the gather's dvol,
 whose atomic scatter-adds sum in another order, within ``DVOL_RTOL`` of its
@@ -43,7 +44,7 @@ SHAPES = [(1, (6, 9, 34), 1), (2, (5, 7, 33), 3), (1, (7, 10, 35), 2), (1, (5, 6
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     return (_compile(tmp_path_factory, "warp_bounded", ["tile"], 2),
-            _compile(tmp_path_factory, "warp_gather", [], 3))
+            _compile(tmp_path_factory, "warp_gather", [], 2))
 
 
 def _fn(lib, name, argtypes):
@@ -119,7 +120,9 @@ def test_predicated_backward_runs_only_the_named_branch(libs, tier, batch, spati
     gbwd = _fn(gather_lib, "vxm_warp_gather_bwd", wg._ARGTYPES["vxm_warp_gather_bwd"])
     grads = []
     for serve, (kind, halo) in enumerate(_branches()):
-        dvol, dshift = torch.full_like(vol, float("nan")), torch.full_like(shift, float("nan"))
+        # the gather adds into its dvol: zeroed where it is named
+        dvol = torch.full_like(vol, 0.0 if kind == "gather" and serve == tier else float("nan"))
+        dshift = torch.full_like(shift, float("nan"))
         ptrs = (vol.data_ptr(), shift.data_ptr(), g.data_ptr(), dvol.data_ptr(), dshift.data_ptr())
         if kind == "bounded":
             err = bwd(*ptrs, batch, *spatial, nch, halo, word.data_ptr(), serve,
@@ -161,7 +164,7 @@ def test_gather_kernel_wide_channel_path(libs, nch, monkeypatch):
     assert gfwd(vol.data_ptr(), shift.data_ptr(), out.data_ptr(), 1, *spatial, nch, 1,
                 None, 0, None, None) == 0
     assert torch.equal(out, wg.warp_gather_plain(vol, shift))
-    dvol, dshift = torch.full_like(vol, float("nan")), torch.full_like(shift, float("nan"))
+    dvol, dshift = torch.zeros_like(vol), torch.full_like(shift, float("nan"))
     gbwd = _fn(gather_lib, "vxm_warp_gather_bwd", wg._ARGTYPES["vxm_warp_gather_bwd"])
     assert gbwd(vol.data_ptr(), shift.data_ptr(), g.data_ptr(), dvol.data_ptr(),
                 dshift.data_ptr(), 1, *spatial, nch, 1, None, 0, None, None) == 0

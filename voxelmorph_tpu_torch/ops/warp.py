@@ -93,7 +93,9 @@ class _TieredWarp(torch.autograd.Function):
     launched with it, each running only where the index names it, into one
     output buffer. The backward launches the predicated backward kernels
     with the saved index, the branch the forward took (``lax.switch``'s
-    VJP)."""
+    VJP). The bounded kernels write every element of dvol and the gather
+    adds into it, so dvol starts zeroed; where the volume needs no gradient
+    (the image warp of a train step) the gather computes none."""
 
     @staticmethod
     def forward(ctx, vol, shift, halos):
@@ -112,11 +114,13 @@ class _TieredWarp(torch.autograd.Function):
     def backward(ctx, g):
         vol, shift, tier = ctx.saved_tensors
         v, s, gg = _wb._f32(vol), _wb._f32(shift), _wb._f32(g)
-        dvol, dshift = torch.empty_like(v), torch.empty_like(s)
+        need_vol = ctx.needs_input_grad[0]
+        dvol = torch.zeros_like(v) if need_vol else torch.empty_like(v)
+        dshift = torch.empty_like(s)
         for i, h in enumerate(ctx.halos):
             _wb.launch_bounded_bwd(v, s, gg, dvol, dshift, h, tier, i)
-        launch_gather_bwd(v, s, gg, dvol, dshift, tier, len(ctx.halos))
-        return dvol.to(vol.dtype), dshift.to(shift.dtype), None
+        launch_gather_bwd(v, s, gg, dvol if need_vol else None, dshift, tier, len(ctx.halos))
+        return dvol.to(vol.dtype) if need_vol else None, dshift.to(shift.dtype), None
 
 
 def _tiered_warp(vols: torch.Tensor, shifts: torch.Tensor, window_halo: int) -> torch.Tensor:
@@ -286,8 +290,9 @@ class _PhaseWarp(torch.autograd.Function):
     ``n_apps`` bounded warps and the slow branch's gather are all launched
     with it, the last application and the gather into one output buffer,
     and only the named branch runs. The backward runs the same branch's
-    predicated backward kernels; the gradient of the branch not taken is
-    zero, as for ``lax.cond``."""
+    predicated backward kernels into one zeroed dvols buffer (the bounded
+    kernel writes all of it, the gather adds into it); the gradient of the
+    branch not taken is zero, as for ``lax.cond``."""
 
     @staticmethod
     def forward(ctx, vols, root, full_flow, n_apps, halo):
@@ -310,7 +315,7 @@ class _PhaseWarp(torch.autograd.Function):
     def backward(ctx, g):
         *xs, r, f, tier = ctx.saved_tensors
         gg = _wb._f32(g)
-        dvols = torch.empty_like(xs[0])
+        dvols = torch.zeros_like(xs[0])
         droot = None
         for k in reversed(range(len(xs))):
             dx = dvols if k == 0 else torch.empty_like(xs[0])

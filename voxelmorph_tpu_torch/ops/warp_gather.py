@@ -8,15 +8,16 @@ its wide-channel path. ``warp_gather_plain`` computes it with tensor ops and
 ``warp_gather_bwd_plain`` its VJP by autograd. ``launch_gather_fwd`` and
 ``launch_gather_bwd`` launch the kernels of ``csrc/warp_gather.cu``, which
 compute the same terms in the same order (the backward's dvol by atomic
-scatter-adds, so in another order): the gather branch of the tiered warp of
-``ops/warp.py``, predicated on the device's tier word as the bounded
-kernels are. No Pallas kernel computes this function; the JAX package
-leaves it to XLA.
+adds into a buffer the caller zeroes, so in another order): the gather
+branch of the tiered warp of ``ops/warp.py``, predicated on the device's
+tier word as the bounded kernels are. No Pallas kernel computes this
+function; the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -71,7 +72,8 @@ def _launch(name: str, tensors, wide: bool, tier, serve: int, slot: str) -> None
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), B, D, H, W, C, int(wide),
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), B, D, H, W, C,
+                 int(wide),
                  None if tier is None else tier.data_ptr(), int(serve),
                  work_counter(device, slot), stream)
     if err != 0:
@@ -95,6 +97,15 @@ def _check(vol: torch.Tensor, shift: torch.Tensor) -> None:
                         f"of at most float32, not {shift.dtype} and {vol.dtype}")
 
 
+def _check_out(out: torch.Tensor, like: torch.Tensor, name: str) -> None:
+    """The kernels write contiguous float32 buffers of ``like``'s shape."""
+    if out.shape != like.shape or out.dtype != torch.float32 or not out.is_contiguous() \
+            or out.device != like.device:
+        raise ValueError(f"the gather kernel writes {name} as a contiguous float32 tensor of "
+                         f"shape {tuple(like.shape)} on {like.device}; got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}, contiguous {out.is_contiguous()}")
+
+
 def launch_gather_fwd(vol: torch.Tensor, shift: torch.Tensor, out: torch.Tensor,
                       tier=None, serve: int = 0) -> None:
     """Write the gather of ``vol`` by ``shift`` into ``out`` (float32, the
@@ -102,6 +113,7 @@ def launch_gather_fwd(vol: torch.Tensor, shift: torch.Tensor, out: torch.Tensor,
     (an int32 tensor, or None to run unconditionally) equals ``serve``.
     ``launch_gather_fwd.launches`` counts the launches."""
     _check(vol, shift)
+    _check_out(out, vol, "out")
     _launch("vxm_warp_gather_fwd", (_f32(vol), shift.contiguous(), out),
             is_wide(vol.shape[1:-1], vol.shape[-1]), tier, serve, "warp_gather_fwd")
     launch_gather_fwd.launches += 1
@@ -111,14 +123,18 @@ launch_gather_fwd.launches = 0
 
 
 def launch_gather_bwd(vol: torch.Tensor, shift: torch.Tensor, g: torch.Tensor,
-                      dvol: torch.Tensor, dshift: torch.Tensor, tier=None,
+                      dvol: Optional[torch.Tensor], dshift: torch.Tensor, tier=None,
                       serve: int = 0) -> None:
     """Write the VJP of the gather for the cotangent ``g`` into ``dvol`` and
     ``dshift`` (float32, the shapes of vol and shift) where ``tier`` equals
-    ``serve``: dvol is zeroed and scatter-added with atomics, dshift is
-    bit-equal to ``warp_gather_bwd_plain``'s. ``launch_gather_bwd.launches``
-    counts the launches."""
+    ``serve``, in one launch: the volume gradient is added into ``dvol``
+    with atomics (so the caller zeroes it; None computes no volume
+    gradient), dshift is written, bit-equal to ``warp_gather_bwd_plain``'s.
+    ``launch_gather_bwd.launches`` counts the launches."""
     _check(vol, shift)
+    if dvol is not None:
+        _check_out(dvol, vol, "dvol")
+    _check_out(dshift, shift, "dshift")
     _launch("vxm_warp_gather_bwd", (_f32(vol), shift.contiguous(), _f32(g), dvol, dshift),
             is_wide(vol.shape[1:-1], vol.shape[-1]), tier, serve, "warp_gather_bwd")
     launch_gather_bwd.launches += 1
