@@ -126,7 +126,33 @@ Phases:
      (VXM_WINDOW_HALO=2; the tier of each warp read from the work counters
      around its launches), in cuDNN and conv-kernel mode, each under
      torch.cuda.set_sync_debug_mode("error"): any host synchronisation in
-     them fails the run.
+     them fails the run;
+  8. template creation at full width: scripts/train_template.py's recipe
+     (NCC, float32, TF32 off) on TemplateCreation from seed 0, the atlas
+     seeded with the pair's other image (--init-template), ten steps in
+     cuDNN mode and ten with the conv kernel that lower the loss, each with
+     its work counters, the atlas's full-resolution warp backward writing
+     a non-zero dvol through the halo-1 bounded kernel (the warp's autograd
+     Function wrapped to record it), a finite non-zero atlas gradient and
+     MeanStream counting every sample; then, the flow head redrawn
+     N(0, 0.2), one step whose atlas dvol comes from the gather backward's
+     atomics, and that step (with --image-loss mse) at 80x96x112 on the
+     card against the CPU (loss, every gradient, MeanStream's buffers);
+     seconds per step, peak memory;
+  8b. the conditional template (a 4-value phenotype, 4 features, 3 extra
+     convs) at full width: four steps, gated as 8, the Dense weight's bytes;
+  9. atlas-based segmentation at full width: a probabilistic atlas of 4
+     classes made on the card, three steps of
+     scripts/train_unsupervised_seg.py's recipe in each conv mode (the stat
+     ConvBlocks, ci 5, through the conv kernel: 36 launches a step), the
+     stat ConvBlocks' outputs with the conv kernel against cuDNN; then
+     cli/test_unsupervised_seg with a 30-label atlas mapped onto the 4
+     classes, 21 labels a chunk (the wide gather), at full width on the card
+     and at 80x96x112 on the card against the CPU;
+  10. cli/train_instance at full width warm-started from the committed
+     checkpoint, 20 steps that lower the loss, a step's time and launches at
+     the script's defaults, and Transform of its warp and of an affine
+     against transform_batched and warp.transform.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -152,10 +178,19 @@ import torch.nn.functional as F
 
 from voxelmorph_tpu_torch import _build, generators, losses
 from voxelmorph_tpu_torch.cli import register as register_cli
+from voxelmorph_tpu_torch.cli import test_unsupervised_seg as test_seg_cli
+from voxelmorph_tpu_torch.cli import train_instance as instance_cli
 from voxelmorph_tpu_torch.cli import warp as warp_cli
-from voxelmorph_tpu_torch.models.modelio import load_model
+from voxelmorph_tpu_torch.cli.train_cond_template import cond_template_terms
+from voxelmorph_tpu_torch.cli.train_template import template_terms
+from voxelmorph_tpu_torch.cli.train_unsupervised_seg import unsupervised_seg_terms
+from voxelmorph_tpu_torch.models.atlas import (ConditionalTemplateCreation,
+                                               ProbAtlasSegmentation, TemplateCreation,
+                                               stream_step)
+from voxelmorph_tpu_torch.models.modelio import load_model, save_model
 from voxelmorph_tpu_torch.models.unet import ConvBlock
-from voxelmorph_tpu_torch.models.vxm import (VxmDense, VxmDenseSemiSupervisedPointCloud,
+from voxelmorph_tpu_torch.models.vxm import (InstanceDense, Transform, VxmDense,
+                                             VxmDenseSemiSupervisedPointCloud,
                                              VxmDenseSemiSupervisedSeg)
 from voxelmorph_tpu_torch.ops import conv3, interp
 from voxelmorph_tpu_torch.ops import warp as warp_ops
@@ -1136,6 +1171,43 @@ def _check_conv3(seed):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}{f32_note}), plain {t['plain_ms']:.4f} "
             f"ms, cuDNN {t['library_ms']:.4f} ms")
     return rows, totals
+
+
+def check_conv3_shapes(label, shapes, seed):
+    """The float32 conv kernel against its plain version at (D, H, W, ci,
+    co) ``shapes`` other than the U-Net's: the forward as a ConvBlock calls
+    it and the input gradient (co -> ci), each within
+    conv3.kernel_tolerance, on data made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last_3d
+    with full_float32():
+        for D, H, W, ci, co in shapes:
+            x = torch.randn((1, ci, D, H, W), generator=gen, device="cuda").contiguous(
+                memory_format=cl)
+            g = torch.randn((1, co, D, H, W), generator=gen, device="cuda").contiguous(
+                memory_format=cl)
+            kernel = torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda") * \
+                (2.0 / (27 * ci)) ** 0.5
+            bias = 0.1 * torch.randn(co, generator=gen, device="cuda")
+            zero = torch.zeros(ci, device="cuda")
+            order = not conv3.jax_kernel_takes(ci, co, D, H, W, 4, 4)
+            cases = {
+                f"fwd {ci}->{co}": (
+                    conv3.conv3_same_cf(x, kernel, bias, act_slope=0.2, round_conv_first=order),
+                    conv3.conv3_same_cf_plain(x, kernel, bias, 0.2, None, order), bias, order),
+                f"dx {co}->{ci}": (
+                    conv3.conv3_input_grad(g, kernel),
+                    conv3.conv3_same_cf_plain(g, kernel.flip(0, 1, 2).transpose(3, 4), zero,
+                                              None, None, False), zero, False)}
+            for name, (y, plain, b, o) in cases.items():
+                diff = (y - plain).abs()
+                ratio = (diff / conv3.kernel_tolerance(plain, b, o)).max().item()
+                log(f"{label}, conv3 {name} at {(D, H, W)}: max abs err {diff.max().item():.3e}, "
+                    f"{ratio:.3f} of the tolerance")
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{label}: conv3 {name} differs from its plain version "
+                                         f"by {ratio:.3f} of its tolerance")
+            del x, g, cases
 
 
 def default_recipe(inshape, flow_std=None):
@@ -2697,6 +2769,567 @@ def conv_library_times(model):
         f"{2 * total['flops'] / BF16_TENSOR_FLOPS_PER_S * 1e3:.4f} ms bwd")
 
 
+# the template-creation recipe of scripts/train_template.py (NCC, weights
+# 1/1/1: the scan->atlas image term weighs 1 - 1 = 0); steps of phase 8's
+# loss gate; the flow head's redraw that sends the full-resolution image
+# warps to the gather tier (max|d| over the halo)
+TEMPLATE_STEPS = 10
+TEMPLATE_GATHER_STD = 0.2
+ATLAS_DVOL = "atlas: the step's warp dvol"
+# the atlas's whole gradient, card against CPU at half width, as
+# ||card - CPU|| / ||CPU|| (L2 over the volume). Its part through the
+# U-Net's input follows the warps' shift gradients, which jump where a
+# coordinate crosses an integer, so single voxels move far on any change of
+# rounding, and its max-abs difference is no measure. Measured on an H100:
+# 1.95e-3 card vs CPU (2.8e-2 of its max); on the CPU alone, the scan scaled
+# by 1 + 1e-7 noise moves it by 0.10 (--atlas-conditioning). The limit is
+# ten times the first and a fifth of the second.
+ATLAS_GRAD_GPU_VS_CPU_L2 = 2e-2
+# the conditional template of scripts/train_cond_template.py: a 4-value
+# phenotype, conv_nb_features 4, extra_conv_layers 3
+PHENO_FEATS = 4
+COND_STEPS = 4
+# atlas-based segmentation: a probabilistic atlas of 4 tissue classes (the
+# background and 3 Voronoi regions of the head), a full atlas of 30 labels
+# mapped onto them, 21 labels a chunk (the script's default)
+PROB_CLASSES = 4
+FULL_LABELS = 30
+PROB_STEPS = 3
+# the instance optimisation of scripts/train_instance.py, warm-started from
+# the committed checkpoint. At the script's default learning rate (1e-3)
+# Adam's first step moves every flow component by about mult x lr = 1 voxel
+# and the loss rises before it falls (the timed run below logs its losses);
+# at 1e-4 it falls from the first step. The gated run takes 1e-4.
+INSTANCE_STEPS = 20
+INSTANCE_LR = 1e-4
+
+
+@contextlib.contextmanager
+def record_dvol(kept=None):
+    """Record each tiered warp's backward that computes the volume's
+    gradient (dvol): the volume's shape, the tier word of its warp (0: the
+    halo-1 bounded kernel, 1: the gather, at the default halo) and
+    max|dvol|, as device tensors, read after the run (``read_dvol``); with
+    a list ``kept``, each dvol itself too, copied. The warp's autograd
+    Function is wrapped for the run, as phase 7 wraps its forward: the
+    forward also computes the tier word (``tier_index``, as the warp does)
+    and keeps it on the autograd context, since a backward under a
+    checkpoint may read its saved tensors only once; nothing is
+    synchronised, and nothing is launched in addition but that reduction,
+    a copy and one reduction of dvol (and the copy of a kept one)."""
+    forward, backward = warp_ops._TieredWarp.forward, warp_ops._TieredWarp.backward
+    records = []
+
+    def forward_recorded(ctx, vol, shift, halos):
+        ctx.recorded_tier = warp_ops.tier_index(shift, halos)
+        return forward(ctx, vol, shift, halos)
+
+    def backward_recorded(ctx, g):
+        grads = backward(ctx, g)
+        if grads[0] is not None:
+            records.append((tuple(grads[0].shape), ctx.recorded_tier.clone(),
+                            grads[0].detach().abs().amax()))
+            if kept is not None:
+                kept.append(grads[0].detach().clone())
+        return grads
+
+    warp_ops._TieredWarp.forward = staticmethod(forward_recorded)
+    warp_ops._TieredWarp.backward = staticmethod(backward_recorded)
+    try:
+        yield records
+    finally:
+        warp_ops._TieredWarp.forward = staticmethod(forward)
+        warp_ops._TieredWarp.backward = staticmethod(backward)
+
+
+@contextlib.contextmanager
+def warp_vol_grads(kept):
+    """Keep, in the list ``kept``, the gradient each ``transform_batched``
+    passes to a volume that needs one: the warp's dvol on any device (the
+    CPU's warps are no autograd Function of their own to wrap)."""
+    transform_batched = warp_ops.transform_batched
+
+    def recorded(vols, shifts, *args, **kwargs):
+        if vols.requires_grad:
+            vols = vols.view_as(vols)
+            vols.register_hook(lambda g: kept.append(g.detach().clone()))
+        return transform_batched(vols, shifts, *args, **kwargs)
+
+    warp_ops.transform_batched = recorded
+    try:
+        yield kept
+    finally:
+        warp_ops.transform_batched = transform_batched
+
+
+def read_dvol(records):
+    """The records of ``record_dvol`` as (shape, tier, max|dvol|) on the
+    host; clears them."""
+    out = [(shape, int(tier.item()), float(top.item())) for shape, tier, top in records]
+    records.clear()
+    return out
+
+
+def check_dvol(label, dvols, tier, spatial=INSHAPE):
+    """Fail unless one tiered warp of the step at ``spatial`` computed a
+    dvol (the atlas's warp; every squaring step computes one at half
+    resolution), on ``tier``, non-zero and finite."""
+    full = [d for d in dvols if d[0][1:4] == spatial]
+    if len(full) != 1 or full[0][1] != tier or not (np.isfinite(full[0][2]) and full[0][2] > 0):
+        raise AssertionError(f"{label}: expected one warp backward at {spatial} writing a "
+                             f"non-zero dvol on tier {tier}; got {full}")
+    return full[0]
+
+
+def template_recipe(inshape, flow_std=None, atlas=None):
+    """scripts/train_template.py's default (NCC) on a float32
+    TemplateCreation with default features, initialised from seed 0;
+    ``flow_std`` redraws the flow head as default_recipe does; ``atlas``
+    seeds the atlas, as the script's --init-template does."""
+    model = TemplateCreation(inshape, generator=torch.Generator().manual_seed(SEED))
+    if flow_std is not None:
+        with torch.no_grad():
+            model.vxm.flow.weight.normal_(0.0, flow_std,
+                                          generator=torch.Generator().manual_seed(SEED + 1))
+    if atlas is not None:
+        model.set_atlas(atlas)
+    return model, template_terms("ncc")
+
+
+def template_targets(scan):
+    zero = torch.zeros((1, *scan.shape[1:-1], 3), device=scan.device)
+    return (scan,), (scan, zero, zero, zero)
+
+
+def template_step_grads(inshape, device, scan, flow_std, atlas):
+    """Loss, parameter gradients and MeanStream's buffers after one train
+    step of the template recipe (no update), with the dvol records on the
+    card. The atlas's whole gradient is returned apart; its part through
+    the full-resolution warp, the dvol that the step's own warp backward
+    wrote (on the card the tiered warp's kernel's, kept by
+    ``record_dvol``), goes in with the others as ATLAS_DVOL."""
+    model, terms = template_recipe(inshape, flow_std, atlas)
+    trainer = Trainer(model, terms, device=device)
+    trainer.model.train()
+    inputs, targets = template_targets(scan.to(device))
+    kept, dvols = [], None
+    with (record_dvol(kept) if device == "cuda" else warp_vol_grads(kept)) as records:
+        with stream_step(trainer.model):
+            loss, _ = trainer.loss_fn(inputs, targets)
+            loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            dvols = read_dvol(records)
+    full = [d for d in kept if tuple(d.shape[1:-1]) == tuple(inshape)]
+    if len(full) != 1:
+        raise AssertionError(f"expected one warp dvol at {inshape} on {device}, got {len(full)}")
+    grads = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}
+    total = grads.pop("atlas")
+    grads[ATLAS_DVOL] = full[0].cpu()
+    for name, buf in trainer.model.named_buffers():
+        grads[f"{name} (state after the step)"] = buf.detach().cpu().reshape(-1)
+    return loss.item(), grads, dvols, total
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b||, in float64."""
+    return (torch.linalg.vector_norm((a.double() - b.double()))
+            / torch.linalg.vector_norm(b.double())).item()
+
+
+def rel_max(a, b):
+    """max|a - b| / max|b|."""
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def run_steps(trainer, inputs, targets, steps, label, smi, dvol_tier=None, gate_loss=True):
+    """``steps`` train steps with the work counters read after each (and,
+    with ``dvol_tier``, the step's full-resolution dvol backward checked);
+    with ``gate_loss`` the last loss must be below the first. Returns the
+    losses, the seconds of each step, the launches of the last, the peak
+    memory in GiB and each step's full-resolution dvol record."""
+    torch.cuda.reset_peak_memory_stats()
+    losses_, step_s, counts, dvol_steps = [], [], None, []
+    with record_dvol() as records:
+        for step in range(steps):
+            reset_launches()
+            t0 = time.perf_counter()
+            losses_.append(trainer.train_step(inputs, targets)["loss"].item())  # synchronises
+            step_s.append(time.perf_counter() - t0)
+            counts = read_launches()
+            check_warp_work(counts, f"{label}, step {step}")
+            dvols = read_dvol(records)
+            if dvol_tier is not None:
+                dvol_steps.append(check_dvol(f"{label}, step {step}", dvols, dvol_tier))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label}: step losses " + ", ".join(f"{x:.8f}" for x in losses_))
+    if dvol_steps:
+        log(f"{label}: the full-resolution warp's dvol, max|dvol| of each step (tier "
+            f"{dvol_tier}): " + ", ".join(f"{d[2]:.3e}" for d in dvol_steps))
+    log(f"{label}, bs1, {INSHAPE}: " + ", ".join(f"{x:.4f}" for x in step_s) + " s/step "
+        f"(median after the first {float(np.median(step_s[1:])):.4f}); peak memory allocated "
+        f"{peak_gb:.3f} GiB; launches of the last step {counts}; {smi}")
+    if not all(np.isfinite(losses_)) or (gate_loss and not losses_[-1] < losses_[0]):
+        raise AssertionError(f"{label}: {steps} steps did not lower the loss: {losses_}")
+    return losses_, step_s, counts, peak_gb, dvol_steps
+
+
+def grads_finite_nonzero(label, tensors):
+    for name, t in tensors.items():
+        if t is None or not (torch.isfinite(t).all() and t.abs().max().item() > 0):
+            raise AssertionError(f"{label}: the gradient of {name} is missing, zero or "
+                                 "not finite")
+
+
+def train_template(smi, conditioning=False):
+    """Phase 8: template creation at full width. Returns the launches of a
+    step in cuDNN mode, in conv-kernel mode and with the flow head redrawn
+    (the atlas's dvol through the gather), and the card-vs-CPU readings;
+    with ``conditioning``, also how far the CPU's own step moves when the
+    scan is scaled by 1 + 1e-7 noise."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scan, template = smooth_pair(INSHAPE, "cuda")
+    inputs, targets = template_targets(scan)
+    out = {}
+    for enabled in (False, True):
+        mode = "conv kernel" if enabled else "cuDNN"
+        with conv_kernel_mode(enabled):
+            # the atlas seeded with the pair's other image (--init-template):
+            # from the N(0, 1e-7) init, NCC's cross term and variances stay
+            # clamped at its eps (1e-5, as in JAX) on this smooth scan for
+            # ten steps and more, which passes the warped atlas no gradient
+            # (a dvol of exact zeros)
+            model, terms = template_recipe(INSHAPE, atlas=template)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            # the seed-0 flows are ~1e-5 voxels: the atlas's full-resolution
+            # warp takes the halo-1 bounded kernel, whose backward writes dvol
+            _, step_s, counts, peak, _ = run_steps(
+                trainer, inputs, targets, TEMPLATE_STEPS,
+                f"float32 template creation, {mode}", smi, dvol_tier=0)
+            grads_finite_nonzero(f"template creation, {mode}", {"atlas": model.atlas.grad})
+            count = model.mean_stream.count.item()
+            log(f"template creation, {mode}: MeanStream count {count} after {TEMPLATE_STEPS} "
+                f"samples; max|atlas - its seed| "
+                f"{(model.atlas.detach() - template).abs().max().item():.3e}")
+            if count != min(TEMPLATE_STEPS, model.mean_stream.cap):
+                raise AssertionError(f"MeanStream counted {count} samples of {TEMPLATE_STEPS}")
+            # the atlas needs a gradient: the first conv's input gradient too
+            if enabled and counts["conv"] != TRAIN_STEP_CONVS + 1:
+                raise AssertionError(f"a template step launched {counts['conv']} convs, not "
+                                     f"{TRAIN_STEP_CONVS + 1}")
+            out[enabled] = dict(launches=counts, step_s=float(np.median(step_s[1:])),
+                                peak_gib=peak)
+            del trainer, model
+
+    # the flow head redrawn: the image warps take the gather tier, and the
+    # atlas's dvol comes from the gather backward's atomics at full width
+    model, terms = template_recipe(INSHAPE, TEMPLATE_GATHER_STD, template)
+    trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+    reset_launches()
+    with record_dvol() as records:
+        loss = trainer.train_step(inputs, targets)["loss"].item()
+        dvols = read_dvol(records)
+    counts = read_launches()
+    check_warp_work(counts, "the redrawn template step")
+    full = check_dvol("the redrawn template step", dvols, 1)
+    log(f"template step, flow head N(0, {TEMPLATE_GATHER_STD}): loss {loss:.8f}; the atlas's "
+        f"warp backward {full}; launches {counts}")
+    grads_finite_nonzero("the redrawn template step", {"atlas": model.atlas.grad})
+    out["gather"] = dict(launches=counts)
+    del trainer, model
+
+    # one step, the card against the port's CPU run at half width (full-width
+    # features, flows of voxels; the CPU takes the bounded tiers too): the
+    # loss, the parameters' gradients, MeanStream's buffers and the atlas's
+    # dvol to compare_grads' tolerance, the atlas's whole gradient by its
+    # norm (ATLAS_GRAD_GPU_VS_CPU_L2)
+    half = tuple(s // 2 for s in INSHAPE)
+    scan_h, template_h = smooth_pair(half, "cpu")
+    t0 = time.perf_counter()
+    loss_c, grads_c, dvol_c, total_c = template_step_grads(half, "cuda", scan_h,
+                                                           TEMPLATE_GATHER_STD, template_h)
+    with window_halo("1"):
+        loss_cpu, grads_cpu, _, total_cpu = template_step_grads(half, "cpu", scan_h,
+                                                                TEMPLATE_GATHER_STD, template_h)
+    log(f"template step at {half} on the card and the CPU: {time.perf_counter() - t0:.2f} s; "
+        f"dvol backwards at {half} on the card "
+        f"{[d for d in dvol_c if d[0][1:4] == half]}")
+    check_dvol("the half-width template step on the card", dvol_c, 1, half)
+    label = f"template creation GPU vs CPU, flow head N(0, {TEMPLATE_GATHER_STD}), {half}"
+    compare_grads(label, loss_c, grads_c, loss_cpu, grads_cpu, TRAIN_GPU_VS_CPU_RTOL)
+    out["card_vs_cpu"] = dict(atlas_rel_l2=rel_l2(total_c, total_cpu),
+                              atlas_rel_max=rel_max(total_c, total_cpu),
+                              dvol_rel_max=rel_max(grads_c[ATLAS_DVOL], grads_cpu[ATLAS_DVOL]))
+    log(f"{label}: {json.dumps(out['card_vs_cpu'])} (the atlas's whole gradient by its norm, "
+        f"tol {ATLAS_GRAD_GPU_VS_CPU_L2})")
+    if not out["card_vs_cpu"]["atlas_rel_l2"] <= ATLAS_GRAD_GPU_VS_CPU_L2:
+        raise AssertionError(f"{label}: the atlas's gradient differs by "
+                             f"{out['card_vs_cpu']['atlas_rel_l2']:.3e} of its norm")
+    if conditioning:
+        # the CPU's own sensitivity: the scan scaled by 1 + 1e-7 noise
+        noise = torch.from_numpy(np.random.default_rng(SEED + 14).standard_normal(
+            scan_h.shape, dtype=np.float32))
+        with window_halo("1"):
+            _, grads_p, _, total_p = template_step_grads(
+                half, "cpu", scan_h * (1 + 1e-7 * noise), TEMPLATE_GATHER_STD, template_h)
+        params = [k for k in grads_cpu if k != ATLAS_DVOL and "(state" not in k]
+        out["conditioning"] = dict(
+            atlas_rel_l2=rel_l2(total_p, total_cpu), atlas_rel_max=rel_max(total_p, total_cpu),
+            dvol_rel_max=rel_max(grads_p[ATLAS_DVOL], grads_cpu[ATLAS_DVOL]),
+            params_rel_max=max(rel_max(grads_p[k], grads_cpu[k]) for k in params))
+        log(f"{label}: on the CPU, the scan scaled by 1 + 1e-7 noise moves "
+            f"{json.dumps(out['conditioning'])}")
+    return out
+
+
+def cond_template_check(smi):
+    """Phase 8b: the conditional template at full width, a few steps."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scan = smooth_pair(INSHAPE, "cuda")[0]
+    pheno = torch.from_numpy(np.random.default_rng(SEED + 11).standard_normal(
+        (1, PHENO_FEATS), dtype=np.float32)).cuda()
+    atlas = torch.zeros_like(scan)  # the CLI's default atlas
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    model = ConditionalTemplateCreation(INSHAPE, (PHENO_FEATS,), conv_nb_features=4,
+                                        extra_conv_layers=3,
+                                        generator=torch.Generator().manual_seed(SEED))
+    dense_bytes = model.pheno_dense.weight.numel() * 4
+    trainer = Trainer(model, cond_template_terms("ncc"), lr=1e-4, device="cuda")
+    _, step_s, counts, peak, _ = run_steps(trainer, (pheno, atlas, scan), (scan, zero, zero, zero),
+                                        COND_STEPS, "float32 conditional template, cuDNN", smi,
+                                        dvol_tier=0)
+    grads_finite_nonzero("the conditional template", {
+        "pheno_dense.weight": model.pheno_dense.weight.grad,
+        "atlas_gen.weight": model.atlas_gen.weight.grad})
+    log(f"conditional template: pheno_dense weight {tuple(model.pheno_dense.weight.shape)}, "
+        f"{dense_bytes} B ({dense_bytes / 2 ** 30:.3f} GiB; with its gradient and Adam's "
+        f"moments {4 * dense_bytes / 2 ** 30:.3f} GiB); peak {peak:.3f} GiB; {smi}")
+    count = model.mean_stream.count.item()
+    if count != COND_STEPS:
+        raise AssertionError(f"MeanStream counted {count} samples of {COND_STEPS}")
+    return dict(launches=counts, step_s=float(np.median(step_s[1:])), peak_gib=peak,
+                dense_bytes=dense_bytes)
+
+
+def prob_atlas(moving, nb_classes, seed):
+    """A probabilistic atlas ``(1, *S, nb_classes)`` of ``moving``'s head:
+    the background and nb_classes - 1 Voronoi regions, one-hot, blurred
+    twice by a 5^3 box and normalised, made on moving's device."""
+    labels = voronoi_labels(moving[0], nb_classes - 1, seed)
+    onehot = F.one_hot(labels.long(), nb_classes).to(torch.float32)
+    x = onehot.movedim(-1, 0)[None]
+    for _ in range(2):
+        x = F.avg_pool3d(x, 5, stride=1, padding=2, count_include_pad=False)
+    x = x / x.sum(dim=1, keepdim=True)
+    return x[0].movedim(0, -1)[None].contiguous()
+
+
+def prob_recipe(inshape, flow_std=None):
+    """scripts/train_unsupervised_seg.py's default (stat post warp, Grad-l2
+    at 10) on a float32 ProbAtlasSegmentation of PROB_CLASSES classes,
+    seed 0, the flow head redrawn as default_recipe does."""
+    model = ProbAtlasSegmentation(inshape, nb_labels=PROB_CLASSES, stat_post_warp=True,
+                                  generator=torch.Generator().manual_seed(SEED))
+    if flow_std is not None:
+        with torch.no_grad():
+            model.vxm.flow.weight.normal_(0.0, flow_std,
+                                          generator=torch.Generator().manual_seed(SEED + 1))
+    return model, unsupervised_seg_terms(10.0)
+
+
+def prob_atlas_check(smi):
+    """Phase 9: atlas-based segmentation at full width."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    atlas = prob_atlas(moving, PROB_CLASSES, SEED + 12)
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    image = fixed * (fixed > 0.2)  # a background the data term's mask leaves out
+    out = {}
+    for enabled in (False, True):
+        mode = "conv kernel" if enabled else "cuDNN"
+        with conv_kernel_mode(enabled):
+            model, terms = prob_recipe(INSHAPE, FLOW_STD)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            _, step_s, counts, peak, _ = run_steps(
+                trainer, (image, atlas), (atlas, zero), PROB_STEPS,
+                f"float32 atlas-based segmentation, {mode}", smi)
+            # the U-Net's 32 conv launches and the two stat ConvBlocks',
+            # forward and input gradient
+            expected = TRAIN_STEP_CONVS + 4 if enabled else 0
+            if counts["conv"] != expected:
+                raise AssertionError(f"a segmentation step launched {counts['conv']} convs, "
+                                     f"not {expected}")
+            out[enabled] = dict(launches=counts, step_s=float(np.median(step_s[1:])),
+                                peak_gib=peak)
+            del trainer, model
+
+    # one step's loss and gradients, conv-kernel mode against cuDNN mode: the
+    # stat ConvBlocks' input gradients (16 -> PROB_CLASSES + 1 and
+    # PROB_CLASSES -> 16) reach stat_conv0's weights, the flow and the U-Net
+    runs = {}
+    for enabled in (True, False):
+        with conv_kernel_mode(enabled):
+            runs[enabled] = recipe_step_grads(prob_recipe, INSHAPE, "cuda",
+                                              ((image, atlas), (atlas, zero)), FLOW_STD)
+    if runs[True][2]["conv"] != TRAIN_STEP_CONVS + 4 or runs[False][2]["conv"] != 0:
+        raise AssertionError(f"one segmentation step launched {runs[True][2]['conv']} convs "
+                             f"in conv-kernel mode, {runs[False][2]['conv']} in cuDNN mode")
+    out["conv_kernel_vs_cudnn"] = compare_grads(
+        f"atlas-based segmentation, conv kernel vs cuDNN, flow head N(0, {FLOW_STD}), "
+        f"{INSHAPE}", runs[True][0], runs[True][1], runs[False][0], runs[False][1],
+        TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
+    del runs
+    # the stat ConvBlocks' four shapes against the kernel's plain version
+    check_conv3_shapes("the stat ConvBlocks", [(*INSHAPE, PROB_CLASSES + 1, 16),
+                                               (*INSHAPE, 16, PROB_CLASSES)], SEED + 15)
+
+    # the stat ConvBlocks (ci = PROB_CLASSES + 1) through the conv kernel
+    # against cuDNN, on the same input, float32
+    model, _ = prob_recipe(INSHAPE, FLOW_STD)
+    model = model.cuda().eval()
+    captured = {}
+    def capture(module, args):
+        captured["x"] = args[0]
+
+    model.stat_conv0.register_forward_pre_hook(capture)
+    with torch.no_grad(), full_float32():
+        model(image, atlas)
+        feats = {}
+        for enabled in (False, True):
+            with conv_kernel_mode(enabled):
+                reset_launches()
+                h0 = model.stat_conv0(captured["x"])
+                feats[enabled] = (h0, model.stat_conv1(h0))
+                launches = read_launches()["conv"]
+                if launches != (2 if enabled else 0):
+                    raise AssertionError(f"the stat ConvBlocks launched {launches} convs")
+    for i, name in enumerate(("stat_conv0", "stat_conv1")):
+        a, b = feats[True][i].float(), feats[False][i].float()
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        log(f"{name} (ci {a.shape[1] if i else captured['x'].shape[1]}), conv kernel vs cuDNN, "
+            f"float32: max abs err {err:.3e} of max {scale:.3e} (tol {IMAGE_TOL} x max)")
+        if not (scale > 0 and err <= IMAGE_TOL * scale):
+            raise AssertionError(f"{name}: the conv kernel disagrees with cuDNN")
+    del model, captured, feats
+
+    # cli/test_unsupervised_seg: a FULL_LABELS-label atlas mapped onto the
+    # classes, at full width on the card, and card against CPU at half width
+    with tempfile.TemporaryDirectory() as tmp:
+        out["test_seg"] = {}
+        for spatial in (INSHAPE, tuple(s // 2 for s in INSHAPE)):
+            mv, fx = smooth_pair(spatial, "cpu")
+            model, _ = prob_recipe(spatial, FLOW_STD)
+            save_model(f"{tmp}/prob.npz", model)
+            labels = voronoi_labels(mv[0].cuda(), FULL_LABELS - 1, SEED + 13)
+            full = F.one_hot(labels.long(), FULL_LABELS).to(torch.float32).cpu()
+            mapping = np.arange(FULL_LABELS) % PROB_CLASSES
+            np.savez(f"{tmp}/atlas.npz",
+                     vol=prob_atlas(mv.cuda(), PROB_CLASSES, SEED + 12)[0].cpu().numpy())
+            np.savez(f"{tmp}/full.npz", vol=full.numpy())
+            np.save(f"{tmp}/mapping.npy", mapping)
+            np.savez(f"{tmp}/image.npz", vol=fx[0, ..., 0].numpy())
+            segs = {}
+            devices = ("cuda",) if spatial == INSHAPE else ("cuda", "cpu")
+            for device in devices:
+                args = [f"{tmp}/image.npz", f"{tmp}/seg_{device}.nii", "--model", f"{tmp}/prob.npz",
+                        "--atlas", f"{tmp}/atlas.npz", "--atlas-full", f"{tmp}/full.npz",
+                        "--mapping", f"{tmp}/mapping.npy", "--device", device]
+                if device == "cpu":
+                    args += ["--posteriors", f"{tmp}/post_cpu.nii"]
+                t0 = time.perf_counter()
+                reset_launches()
+                if device == "cpu":
+                    with window_halo("1"):
+                        segs[device] = test_seg_cli.main(args)
+                else:
+                    segs[device] = test_seg_cli.main(args)
+                    torch.cuda.synchronize()
+                counts = read_launches()
+                log(f"cli/test_unsupervised_seg at {spatial} on {device}, {FULL_LABELS} labels "
+                    f"in chunks of 21: {time.perf_counter() - t0:.2f} s; classes found "
+                    f"{np.unique(segs[device]).size}; launches {counts}")
+                if device == "cuda":
+                    check_warp_work(counts, "cli/test_unsupervised_seg", backward=False)
+                    out["test_seg"][spatial] = counts
+            if segs["cuda"].shape != spatial or np.unique(segs["cuda"]).size < FULL_LABELS // 2:
+                raise AssertionError(f"cli/test_unsupervised_seg at {spatial}: a segmentation "
+                                     f"of {np.unique(segs['cuda']).size} labels")
+            if "cpu" in segs:
+                # voxels whose two best posteriors tie (on the CPU, within
+                # 1e-5 of the best) may take either label; no other may differ
+                post = load_volfile(f"{tmp}/post_cpu.nii")
+                top2 = np.sort(post, axis=-1)[..., -2:]
+                tied = top2[..., 1] - top2[..., 0] <= 1e-5 * top2[..., 1]
+                differ = segs["cuda"] != segs["cpu"]
+                log(f"segmentation at {spatial}, card vs CPU: {int(differ.sum())} voxels differ, "
+                    f"all among the {int(tied.sum())} whose two best posteriors tie")
+                if (differ & ~tied).any():
+                    raise AssertionError("the card's segmentation differs from the CPU's")
+            del model
+    return out
+
+
+def instance_check(smi):
+    """Phase 10: cli/train_instance at full width warm-started from the
+    committed checkpoint, then Transform on its warp and on an affine."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/moving.npz", vol=moving[0, ..., 0].numpy())
+        np.savez(f"{tmp}/fixed.npz", vol=fixed[0, ..., 0].numpy())
+        t0 = time.perf_counter()
+        step_losses = instance_cli.main([
+            "--moving", f"{tmp}/moving.npz", "--fixed", f"{tmp}/fixed.npz", "--model",
+            str(CHECKPOINT), "--moved", f"{tmp}/moved.nii", "--warp", f"{tmp}/warp.nii",
+            "--steps", str(INSTANCE_STEPS), "--lr", str(INSTANCE_LR), "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+        moved = torch.from_numpy(load_volfile(f"{tmp}/moved.nii")).cuda()
+        warp = torch.from_numpy(load_volfile(f"{tmp}/warp.nii")).cuda()
+    log(f"cli/train_instance, {INSTANCE_STEPS} steps at {INSHAPE} from {CHECKPOINT.name}: "
+        f"{cli_s:.2f} s in all; losses {step_losses[0]:.6f} -> {step_losses[-1]:.6f}; "
+        f"max|warp| {warp.abs().max().item():.3f} voxels")
+    if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
+        raise AssertionError(f"cli/train_instance did not lower the loss: {step_losses}")
+
+    # the seconds and launches of a step of the CLI's recipe (its defaults:
+    # MSE, Grad-l2 at 0.01, Adam 1e-3) from the same warm start; the loss
+    # is logged, not gated
+    model = InstanceDense(INSHAPE, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.set_flow(load_model(str(CHECKPOINT), device="cuda")(
+            moving.cuda(), fixed.cuda())["preint_flow"].float())
+    trainer = Trainer(model, [LossTerm("y_source", losses.MSE().loss, target_index=0),
+                              LossTerm("reg", losses.Grad("l2", loss_mult=2).loss, weight=0.01,
+                                       target_index=1, name="grad")], lr=1e-3, device="cuda")
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    _, step_s, counts, peak, _ = run_steps(trainer, (moving.cuda(),), (fixed.cuda(), zero), 6,
+                                        "float32 instance optimisation", smi, gate_loss=False)
+
+    # Transform: the written warp through transform_batched, and an affine
+    # through warp.transform
+    mv = moving.cuda()
+    with torch.no_grad():
+        ours = Transform()(mv, warp[None])
+        ref = warp_ops.transform_batched(mv, warp[None])
+        err_cli = (ours[0] - moved[..., None]).abs().max().item()
+        mat = torch.tensor([[1.02, 0.03, 0.0, 2.5], [-0.02, 0.98, 0.01, -1.5],
+                            [0.0, 0.02, 1.01, 0.75]], device="cuda")
+        aff = Transform()(mv, mat[None])
+        aff_ref = warp_ops.transform(mv[0], mat, window_halo=None)
+    log(f"Transform of the CLI's warp vs transform_batched: max abs err "
+        f"{(ours - ref).abs().max().item():.3e}; vs the CLI's moved image {err_cli:.3e}; "
+        f"affine vs warp.transform {(aff[0] - aff_ref).abs().max().item():.3e}")
+    if not (torch.equal(ours, ref) and torch.equal(aff[0], aff_ref) and err_cli <= IMAGE_TOL):
+        raise AssertionError("Transform disagrees with transform_batched or warp.transform")
+    return dict(launches=counts, step_s=float(np.median(step_s[1:])), peak_gib=peak,
+                cli_s=cli_s)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2709,6 +3342,10 @@ def main(argv=None) -> int:
                         help="other copies of csrc/warp_gather.cu (an earlier commit's) "
                              "to build and time beside the package's gather kernels in "
                              "phase 2e")
+    parser.add_argument("--atlas-conditioning", action="store_true",
+                        help="phase 8 also runs the CPU's template step with the scan "
+                             "scaled by 1 + 1e-7 noise and prints how far that moves the "
+                             "atlas's gradient (the reading behind ATLAS_GRAD_GPU_VS_CPU_L2)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -2841,6 +3478,22 @@ def main(argv=None) -> int:
     sync_free = sync_free_check(smi)
     log(f"phase 7: {time.perf_counter() - t:.2f} s")
 
+    t = phase("8. template creation at full width")
+    template = train_template(smi, args.atlas_conditioning)
+    log(f"phase 8: {time.perf_counter() - t:.2f} s")
+
+    t = phase("8b. conditional template at full width")
+    cond = cond_template_check(smi)
+    log(f"phase 8b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("9. atlas-based segmentation at full width")
+    prob = prob_atlas_check(smi)
+    log(f"phase 9: {time.perf_counter() - t:.2f} s")
+
+    t = phase("10. instance optimisation and Transform at full width")
+    instance = instance_check(smi)
+    log(f"phase 10: {time.perf_counter() - t:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -2849,7 +3502,15 @@ def main(argv=None) -> int:
              "train_step_pointcloud": point_launches,
              "train_step_pointcloud_conv": point_conv_launches,
              "train_step_cached_dispatch": cached_launches,
-             "train_step_2d": nd_launches, "register_do_res_conv": res_launches}
+             "train_step_2d": nd_launches, "register_do_res_conv": res_launches,
+             "train_step_template": template[False]["launches"],
+             "train_step_template_conv": template[True]["launches"],
+             "train_step_template_gather": template["gather"]["launches"],
+             "train_step_cond_template": cond["launches"],
+             "train_step_prob_atlas": prob[False]["launches"],
+             "train_step_prob_atlas_conv": prob[True]["launches"],
+             "test_unsupervised_seg": prob["test_seg"][INSHAPE],
+             "train_step_instance": instance["launches"]}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -2919,6 +3580,12 @@ def main(argv=None) -> int:
         library_ms=conv_serving["library_ms"], register_conv_ms_per_pair=conv_ms,
         train_step_conv=conv_train, tensor_core_instructions=hmma)]
     log("summary: " + json.dumps(dict(
+        template={("conv_kernel" if k is True else "cudnn" if k is False else k): {
+            key: val for key, val in v.items() if key != "launches"} for k, v in template.items()},
+        cond_template={k: v for k, v in cond.items() if k != "launches"},
+        prob_atlas={("conv_kernel" if k else "cudnn"): {
+            key: val for key, val in prob[k].items() if key != "launches"} for k in (False, True)},
+        instance={k: v for k, v in instance.items() if k != "launches"},
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

@@ -83,6 +83,28 @@ def test_entry_points_default_to_the_gpu():
                            "--model", str(CHECKPOINT), "--moved", "unused.nii.gz"])
 
 
+ATLAS_CLIS = {
+    "train_instance": ["--moving", "m.npz", "--fixed", "f.npz", "--moved", "o.nii.gz"],
+    "train_template": ["--img-list", "list.txt"],
+    "train_cond_template": ["--img-list", "list.txt", "--pheno-csv", "pheno.csv"],
+    "train_unsupervised_seg": ["--img-list", "list.txt", "--atlas", "atlas.npz"],
+    "test_unsupervised_seg": ["image.npz", "seg.nii.gz", "--model", "m.npz", "--atlas",
+                              "atlas.npz", "--mapping", "map.npy"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ATLAS_CLIS))
+def test_atlas_clis_default_to_the_gpu(name):
+    """The CLIs of the atlas and instance models refuse to start without a
+    GPU unless --device cpu is given, before they read any file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the GPU default runs")
+    import importlib
+    cli = importlib.import_module(f"voxelmorph_tpu_torch.cli.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(ATLAS_CLIS[name])
+
+
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; chip_smoke.py runs there")

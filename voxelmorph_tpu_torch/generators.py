@@ -2,6 +2,7 @@
 
 The port's own copy of the generators of ``voxelmorph_tpu/generators.py``
 (``volgen``, ``scan_to_scan``, ``scan_to_atlas``, ``semisupervised``,
+``template_creation``, ``conditional_template_creation``,
 ``surf_semisupervised``), with the same ``(inputs, outputs)`` tuple
 contracts. Each takes an explicit ``np.random.Generator`` (``rng``; a fresh
 unseeded one by default) instead of a module-level random state, and draws
@@ -21,7 +22,8 @@ import torch
 from .py import utils as py_utils
 from .py.utils import load_volfile
 
-__all__ = ["volgen", "scan_to_scan", "scan_to_atlas", "semisupervised", "surf_semisupervised"]
+__all__ = ["volgen", "scan_to_scan", "scan_to_atlas", "semisupervised", "template_creation",
+           "conditional_template_creation", "surf_semisupervised"]
 
 
 def _expand_names(vol_names):
@@ -151,6 +153,37 @@ def semisupervised(vol_names, seg_names, labels, atlas_file=None, downsize=2, rn
         if flow is None:
             flow = _zero_flow(1, src_vol.shape[1:-1])
         yield ([src_vol, trg_vol, src_seg], [trg_vol, flow, trg_seg])
+
+
+def template_creation(vol_names, bidir=False, batch_size=1, rng=None, **kwargs):
+    """Unconditional template creation: inputs [scans], outputs [scans] and
+    two zero flows (three with ``bidir``), each of batch 1 as in the JAX
+    package."""
+    gen = volgen(vol_names, batch_size=batch_size, rng=rng, **kwargs)
+    flow = None
+    while True:
+        scan = next(gen)[0]
+        if flow is None:
+            flow = _zero_flow(1, scan.shape[1:-1])
+        yield ([scan], [scan] + [flow] * (3 if bidir else 2))
+
+
+def conditional_template_creation(vol_names, atlas, attributes, batch_size=1, np_var="vol",
+                                  pad_shape=None, add_feat_axis=True, rng=None):
+    """Conditional template creation: inputs [phenotypes, atlas, scans],
+    outputs [scans] and three zero flows. ``attributes`` maps each name of
+    ``vol_names`` to its phenotype vector (``py.utils.load_pheno_csv``);
+    ``atlas`` ``(1, *S, C)`` is repeated over the batch."""
+    rng = np.random.default_rng() if rng is None else rng
+    flow = _zero_flow(batch_size, atlas.shape[1:-1])
+    atlas = np.repeat(atlas, batch_size, axis=0)
+    names = list(vol_names)
+    opts = dict(np_var=np_var, add_feat_axis=add_feat_axis, pad_shape=pad_shape)
+    while True:
+        picks = rng.integers(len(names), size=batch_size)
+        pheno = np.stack([attributes[names[i]] for i in picks], axis=0)
+        scans = _stack_load(names, picks, **opts)
+        yield ([pheno, atlas, scans], [scans, flow, flow, flow])
 
 
 class _SurfaceSampler:

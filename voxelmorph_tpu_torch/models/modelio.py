@@ -3,8 +3,9 @@
 A checkpoint holds a JSON config (``__config__``: model class name and
 constructor fields) and the flax params flattened to ``a||b||kernel`` keys;
 keys under ``__extra__`` hold optimizer and trainer state, which serving
-ignores. The format is read and written here with numpy alone, so that the
-JAX package and the port load each other's checkpoints.
+ignores, and a model's mutable variable collections (``__extra__state||``,
+MeanStream's buffers here). The format is read and written here with numpy
+alone, so that the JAX package and the port load each other's checkpoints.
 """
 
 from __future__ import annotations
@@ -17,14 +18,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .vxm import VxmDense, VxmDenseSemiSupervisedPointCloud, VxmDenseSemiSupervisedSeg
+from .atlas import ConditionalTemplateCreation, ProbAtlasSegmentation, TemplateCreation
+from .vxm import (InstanceDense, VxmDense, VxmDenseSemiSupervisedPointCloud,
+                  VxmDenseSemiSupervisedSeg)
 
-__all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "load_model",
-           "save_model"]
+__all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "state_to_jax",
+           "checkpoint_state", "load_weights", "load_model", "save_model"]
 
 # the model classes a checkpoint may name, by the JAX class name
-_MODELS = {cls.__name__: cls for cls in (VxmDense, VxmDenseSemiSupervisedSeg,
-                                          VxmDenseSemiSupervisedPointCloud)}
+_MODELS = {cls.__name__: cls for cls in (
+    VxmDense, VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud, InstanceDense,
+    TemplateCreation, ConditionalTemplateCreation, ProbAtlasSegmentation)}
 
 _SEP = "||"
 _EXTRA = "__extra__"
@@ -73,7 +77,9 @@ def _encode_config_value(val):
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_jax``: ``a.b.weight`` ``(co, ci, *k)``
-    becomes ``a||b||kernel`` ``(*k, ci, co)``, ``a.b.bias`` ``a||b||bias``."""
+    becomes ``a||b||kernel`` ``(*k, ci, co)`` (a Linear's ``(out, in)``
+    becomes a Dense kernel ``(in, out)``), ``a.b.bias`` ``a||b||bias``, and
+    any other parameter (``atlas``, ``flow``) keeps its name and layout."""
     flat = {}
     for key, val in state.items():
         *path, leaf = key.split(".")
@@ -82,24 +88,71 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             nd = val.ndim - 2
             val = np.transpose(val, (*range(2, nd + 2), 1, 0))
             leaf = "kernel"
-        elif leaf != "bias":
-            raise ValueError(f"unknown parameter '{key}'")
         flat[_SEP.join([*path, leaf])] = np.ascontiguousarray(val)
     return flat
+
+
+def _state_keys(model: torch.nn.Module) -> Dict[str, str]:
+    """The buffers of the model's mutable collections (each module with a
+    ``collection`` attribute, MeanStream's 'stream'), by their flat JAX key
+    ``collection||module path||name``, mapped to their state-dict keys."""
+    keys = {}
+    for path, module in model.named_modules():
+        collection = getattr(module, "collection", None)
+        if collection is None:
+            continue
+        for name, _ in module.named_buffers(recurse=False):
+            parts = path.split(".") if path else []
+            keys[_SEP.join([collection, *parts, name])] = ".".join([*parts, name])
+    return keys
+
+
+def state_to_jax(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The model's mutable collections as the JAX Trainer's ``state`` tree,
+    flattened (``stream||mean_stream||mean``); empty for a stateless model."""
+    buffers = dict(model.named_buffers())
+    return {key: buffers[name].detach().to(torch.float32).cpu().numpy()
+            for key, name in _state_keys(model).items()}
+
+
+def load_weights(model: torch.nn.Module, flat: Dict[str, np.ndarray],
+                 state: Optional[Dict[str, np.ndarray]] = None) -> None:
+    """Load flattened flax params into ``model`` (strictly: every parameter,
+    nothing else) and its mutable collections from ``state`` (flat keys as
+    ``state_to_jax`` gives them), zero where ``state`` has none. Raises on a
+    state key that names no buffer of the model."""
+    weights = params_from_jax(flat)
+    keys = _state_keys(model)
+    state = dict(state or {})
+    unknown = sorted(set(state) - set(keys))
+    if unknown:
+        raise ValueError(f"the checkpoint's state {unknown} names no buffer of "
+                         f"{type(model).__name__}")
+    buffers = dict(model.named_buffers())
+    for key, name in keys.items():
+        weights[name] = (torch.from_numpy(np.array(state[key], np.float32)) if key in state
+                         else torch.zeros_like(buffers[name]))
+    model.load_state_dict(weights)
 
 
 def save_model(path: str, model: torch.nn.Module,
                extra_trees: Optional[Dict[str, Dict[str, np.ndarray]]] = None) -> None:
     """Write ``model`` (its config and float32 params) as the JAX package's
     ``save_model`` does, which its ``load_model`` reads. ``extra_trees`` maps
-    names to flat ``{key: array}`` dicts, stored under ``__extra__name||key``.
-    The file is written under a temporary name and renamed into place."""
+    names to flat ``{key: array}`` dicts, stored under ``__extra__name||key``;
+    a model with mutable collections (MeanStream) adds its buffers as the
+    ``state`` tree, as the JAX Trainer writes them. The file is written under
+    a temporary name and renamed into place."""
     blob = {"class": type(model).__name__,
             "config": {k: _encode_config_value(v) for k, v in model.config.items()},
             "extra": {}}
     encoded = json.dumps(blob)
-    flat = params_to_jax(model.state_dict())
-    for name, tree in (extra_trees or {}).items():
+    flat = params_to_jax(dict(model.named_parameters()))
+    extra_trees = dict(extra_trees or {})
+    state = state_to_jax(model)
+    if state:
+        extra_trees.setdefault("state", state)
+    for name, tree in extra_trees.items():
         for key, val in tree.items():
             flat[f"{_EXTRA}{name}{_SEP}{key}"] = np.asarray(val)
     final = path if path.endswith(".npz") else path + ".npz"
@@ -117,8 +170,10 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Map flattened flax params to a PyTorch state dict.
 
     ``a||b||kernel`` of shape ``(*k, ci, co)`` becomes ``a.b.weight`` of shape
-    ``(co, ci, *k)``; ``a||b||bias`` becomes ``a.b.bias``. Keys under
-    ``__extra__`` are ignored.
+    ``(co, ci, *k)`` (a Dense kernel ``(in, out)``, a Linear's ``(out, in)``);
+    ``a||b||bias`` becomes ``a.b.bias``, and any other leaf (``atlas``,
+    ``flow``) keeps its name and layout. Keys under ``__extra__`` are
+    ignored.
     """
     state = {}
     for key, val in flat.items():
@@ -130,23 +185,28 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             nd = val.ndim - 2
             val = np.transpose(val, (nd + 1, nd, *range(nd)))
             leaf = "weight"
-        elif leaf != "bias":
-            raise ValueError(f"unknown parameter '{key}'")
         state[".".join([*path, leaf])] = torch.from_numpy(np.array(val, order="C"))
     return state
 
 
+def checkpoint_state(extra: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The ``state`` tree of a checkpoint's extra arrays (``read_checkpoint``
+    with ``with_extra``), flat and without its prefix."""
+    prefix = "state" + _SEP
+    return {k[len(prefix):]: v for k, v in extra.items() if k.startswith(prefix)}
+
+
 def load_model(path: str, device="cuda", **overrides) -> torch.nn.Module:
-    """Rebuild a checkpoint's model (VxmDense, VxmDenseSemiSupervisedSeg or
-    VxmDenseSemiSupervisedPointCloud) with its weights, on ``device``, in
-    eval mode.
+    """Rebuild a checkpoint's model (a class of ``_MODELS``) with its
+    weights and, where the checkpoint has one, its ``state`` tree (the
+    MeanStream buffers), on ``device``, in eval mode.
 
     ``overrides`` replace config fields (for example ``dtype=torch.float32``).
     """
     device = resolve_device(device)
-    name, config, flat = read_checkpoint(path)
+    name, config, flat, extra = read_checkpoint(path, with_extra=True)
     if name not in _MODELS:
         raise NotImplementedError(f"model class '{name}' is not ported yet")
     model = _MODELS[name](**{**config, **overrides})
-    model.load_state_dict(params_from_jax(flat))
+    load_weights(model, flat, checkpoint_state(extra))
     return model.to(device).eval()

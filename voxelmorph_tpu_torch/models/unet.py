@@ -45,8 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import conv3
 from ..py.utils import default_unet_features
 
-__all__ = ["Unet", "ConvBlock", "build_feature_lists", "he_normal_", "max_pool",
-           "ACTIVATIONS"]
+__all__ = ["Unet", "ConvBlock", "build_feature_lists", "he_normal_", "lecun_normal_",
+           "max_pool", "ACTIVATIONS"]
 
 # flax.linen's activations by name, as torch functions of channels-first
 # tensors (flax's defaults: gelu's tanh approximation, leaky_relu's slope
@@ -80,16 +80,25 @@ def build_feature_lists(nb_features=None, nb_levels=None, feat_mult=1,
     return list(enc), list(dec)
 
 
-def he_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def he_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None,
+               scale: float = 2.0) -> torch.Tensor:
     """flax's ``he_normal`` for a conv weight ``(co, ci, *k)``, in place: a
-    normal of std sqrt(2 / fan_in), truncated at two std and rescaled so the
-    truncated draw keeps that std (fan_in = ci * prod(k))."""
+    normal of std sqrt(scale / fan_in), scale 2, truncated at two std and
+    rescaled so the truncated draw keeps that std (fan_in = ci * prod(k); for
+    a Dense weight ``(out, in)``, in)."""
     fan_in = weight[0].numel()
     # std of a unit normal truncated to [-2, 2]
-    std = (2.0 / fan_in) ** 0.5 / 0.87962566103423978
+    std = (scale / fan_in) ** 0.5 / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``lecun_normal``, the default kernel init of ``nn.Dense`` and
+    ``nn.Conv``: ``he_normal_`` with scale 1."""
+    return he_normal_(weight, generator, scale=1.0)
 
 
 class ConvBlock(nn.Module):

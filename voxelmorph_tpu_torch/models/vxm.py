@@ -11,7 +11,8 @@ training mode (``model.train()`` / ``model.eval()``) plays the part of the
 JAX call's ``train`` argument. ``VxmDenseSemiSupervisedSeg`` adds the warp
 of one-hot segmentations at a reduced resolution,
 ``VxmDenseSemiSupervisedPointCloud`` the signed distances sampled at warped
-surface points.
+surface points. ``InstanceDense`` optimises one flow field, with no network,
+for one pair, and ``Transform`` applies a dense or affine transform.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import warp as warp_ops
+from ..ops.affine import is_affine_shape, rescale_affine
 from ..ops.warp_bounded import MAX_CHANNELS as _MAX_WARP_CHANNELS
 from .unet import Unet
 
 __all__ = ["VxmDense", "VxmDenseSemiSupervisedSeg", "VxmDenseSemiSupervisedPointCloud",
-           "registration_model", "rescale_flow", "sample_normal"]
+           "InstanceDense", "Transform", "registration_model", "rescale_flow",
+           "sample_normal"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -337,6 +340,89 @@ class VxmDenseSemiSupervisedPointCloud(nn.Module):
             out["warped_subj_surface"], out["atl_dt_value"] = self._sample(
                 atl_dt.float(), subj_surface.float(), out["neg_flow"])
         return out
+
+
+class InstanceDense(nn.Module):
+    """Instance-specific optimisation: a learned flow field and no network.
+
+    The parameter ``flow`` ``(1, *round(inshape / int_resolution), N)``,
+    drawn N(0, 1e-5) as flax draws it, is scaled by ``mult``, repeated over
+    the batch, integrated by ``int_steps`` squarings (the tiered warp, so the
+    bounded-warp kernels on CUDA tensors), rescaled to full resolution and
+    applies to the source. ``forward(source, generator=None)`` returns
+    y_source, preint_flow, pos_flow and reg (the preintegrated flow). As in
+    the JAX package, with ``int_steps=0`` nothing is rescaled: pos_flow stays
+    on the flow's grid and y_source is sampled there (a grid of half the
+    size with ``int_resolution=2``).
+    """
+
+    def __init__(self, inshape: Sequence[int], feats: int = 1, int_steps: int = 7,
+                 int_resolution: int = 2, mult: float = 1000.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = dict(inshape=tuple(inshape), feats=feats, int_steps=int_steps,
+                           int_resolution=int_resolution, mult=mult)
+        self.inshape = tuple(inshape)
+        self.int_steps = int_steps
+        self.int_resolution = int_resolution
+        self.mult = mult
+        self.flow_shape = tuple(int(np.round(d / int_resolution)) for d in inshape)
+        self.flow = nn.Parameter(torch.empty((1, *self.flow_shape, len(inshape))))
+        with torch.no_grad():
+            self.flow.normal_(0.0, 1e-5, generator=generator)
+
+    def forward(self, source: torch.Tensor, generator: Optional[torch.Generator] = None) -> dict:
+        preint_flow = (self.flow * self.mult).repeat(source.shape[0], *[1] * (self.flow.dim() - 1))
+        pos_flow = preint_flow
+        if self.int_steps > 0:
+            pos_flow = warp_ops.integrate_vec_batched(pos_flow, nb_steps=self.int_steps)
+            if self.int_resolution > 1:
+                pos_flow = rescale_flow(pos_flow, self.inshape[0] / self.flow_shape[0])
+        y_source = warp_ops.transform_batched(source.float(), pos_flow)
+        return {"y_source": y_source, "preint_flow": preint_flow, "pos_flow": pos_flow,
+                "reg": preint_flow}
+
+    @staticmethod
+    def flow_from_warp(warp, mult: float = 1000.0):
+        """The stored parameter of an existing (preintegrated) flow."""
+        return warp / mult
+
+    def set_flow(self, warp) -> None:
+        """Set the parameter, in place, from a preintegrated flow ``(1, *S, N)``
+        or ``(*S, N)`` on the flow's grid (a warm start)."""
+        if not torch.is_tensor(warp):
+            warp = torch.as_tensor(np.asarray(warp, np.float32))
+        with torch.no_grad():
+            self.flow.copy_(self.flow_from_warp(warp, self.mult).reshape(self.flow.shape))
+
+
+class Transform(nn.Module):
+    """Apply a transform to images, for inference: ``forward(img, trf)`` with
+    img ``(B, *S, C)`` and trf a batch of affine matrices ``(B, N, N+1)`` or
+    dense displacements ``(B, *S', N)``. ``rescale`` scales the transform
+    first (``ops.affine.rescale_affine`` or ``rescale_flow``). A dense field
+    on the image's grid warps through ``transform_batched``, the tiered warp
+    (its kernels on CUDA tensors); anything else through ``transform`` per
+    sample, on the gather. No parameters."""
+
+    def __init__(self, interp_method: str = "linear", rescale: Optional[float] = None,
+                 fill_value: Optional[float] = None, shift_center: bool = True):
+        super().__init__()
+        self.interp_method = interp_method
+        self.rescale = rescale
+        self.fill_value = fill_value
+        self.shift_center = shift_center
+
+    def forward(self, img: torch.Tensor, trf: torch.Tensor) -> torch.Tensor:
+        affine = is_affine_shape(tuple(trf.shape[1:]))
+        if self.rescale is not None and self.rescale != 1:
+            trf = rescale_affine(trf, self.rescale) if affine else rescale_flow(trf, self.rescale)
+        if not affine and tuple(trf.shape[1:-1]) == tuple(img.shape[1:-1]):
+            return warp_ops.transform_batched(img, trf, interp_method=self.interp_method,
+                                              fill_value=self.fill_value)
+        return torch.stack([warp_ops.transform(
+            i, t, interp_method=self.interp_method, fill_value=self.fill_value,
+            shift_center=self.shift_center, window_halo=None) for i, t in zip(img, trf)])
 
 
 def registration_model(model: nn.Module):

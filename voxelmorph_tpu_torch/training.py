@@ -6,8 +6,9 @@ and ``make_loss_fn`` wire model outputs to losses with the same weighting
 optax's defaults (``torch.optim.Adam``, b1 0.9, b2 0.999, eps 1e-8, with
 optional global-norm clipping as ``optax.clip_by_global_norm`` does it),
 runs epochs of steps from a generator and writes checkpoints in the JAX
-package's ``.npz`` format, with the optimizer state and the step so that a
-run resumes where it stopped, in either package: Adam's moments and step
+package's ``.npz`` format, with the optimizer state, the step and the
+model's mutable state (MeanStream's buffers, updated once per step) so
+that a run resumes where it stopped, in either package: Adam's moments and step
 count are stored as the JAX ``Trainer`` stores optax's state, and read back
 from a checkpoint of either. ``Trainer.fit_cached_pairs`` and the
 ``device_cached_*`` generators train from a stack of volumes held on the
@@ -30,6 +31,7 @@ import torch
 
 from . import resolve_device
 from .models import modelio
+from .models.atlas import stream_step
 from .py.utils import load_volfile
 
 __all__ = ["LossTerm", "make_loss_fn", "Trainer", "MetricsLogger", "Prefetcher",
@@ -288,8 +290,10 @@ class Trainer:
         self.model.train()
         inputs, targets = self._put(inputs), self._put(targets)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.loss_fn(inputs, targets, self.generator)
-        loss.backward()
+        # the model's mutable state (MeanStream) updates once, as the step ends
+        with stream_step(self.model):
+            loss, metrics = self.loss_fn(inputs, targets, self.generator)
+            loss.backward()
         if self.clip_norm is not None:
             _clip_by_global_norm([p.grad for p in self.model.parameters()
                                   if p.grad is not None], self.clip_norm)
@@ -459,9 +463,11 @@ class Trainer:
 
     def save(self, path: str):
         """Write a checkpoint in the JAX package's format: the model's config
-        and params, Adam's state as optax's leaves and the step as the JAX
-        Trainer writes them (which its ``load`` restores), and the sampling
-        generator's state under a key that the JAX package ignores."""
+        and params, its mutable state (MeanStream's buffers, the JAX
+        Trainer's ``state`` tree), Adam's state as optax's leaves and the
+        step as the JAX Trainer writes them (which its ``load`` restores),
+        and the sampling generator's state under a key that the JAX package
+        ignores."""
         extra = {_TRAIN: {"step": np.asarray(self.global_step, np.int64),
                           # the JAX Trainer's PRNGKey(seed)
                           "base_rng": np.asarray([0, self.seed & 0xFFFFFFFF], np.uint32)},
@@ -471,14 +477,15 @@ class Trainer:
         modelio.save_model(path, self.model, extra_trees=extra)
 
     def load(self, path: str):
-        """Restore the params and, where the checkpoint has them, Adam's
-        state, the step and the sampling generator's state, from a checkpoint
-        of either package. Raises if its optimizer state cannot be mapped."""
+        """Restore the params and, where the checkpoint has them, the model's
+        state (zero where it has none), Adam's state, the step and the
+        sampling generator's state, from a checkpoint of either package.
+        Raises if its optimizer state cannot be mapped."""
         _, _, flat, extra = modelio.read_checkpoint(path, with_extra=True)
         if any(k.startswith("torch_opt||") for k in extra):
             raise ValueError(f"{path} holds Adam's state under torch_opt||, a layout that "
                              "this version does not read; load its weights with load_model")
-        self.model.load_state_dict(modelio.params_from_jax(flat))
+        modelio.load_weights(self.model, flat, modelio.checkpoint_state(extra))
         self.init()
         self.loaded_from = path
         opt = {k[len(_OPT) + 2:]: v for k, v in extra.items() if k.startswith(_OPT + "||")}
