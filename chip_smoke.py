@@ -152,7 +152,25 @@ Phases:
   10. cli/train_instance at full width warm-started from the committed
      checkpoint, 20 steps that lower the loss, a step's time and launches at
      the script's defaults, and Transform of its warp and of an affine
-     against transform_batched and warp.transform.
+     against transform_batched and warp.transform;
+  11a. HyperMorph serving: the committed HyperVxmDense checkpoint
+     (float32, trained at 80x96x112) re-targeted to 160x192x224 registers
+     smooth_pair at lambda 0, 0.5 and 1, each call's work counters gated;
+     lambda changes the warp; with set_pallas_conv(True) the hyper blocks
+     launch no conv kernel and the outputs are bit-equal to cuDNN mode; the
+     card against the port's CPU run at 80x96x112, bfloat16 against
+     float32; ms per pair at lambda 0.5;
+  11b. HyperMorph training: scripts/train_hypermorph.py's recipe from seed
+     0, one bs2 step with lambdas 0.2 and 0.8 (the grouped per-sample conv)
+     on the card against the CPU at 80x96x112 (flow head redrawn), ten bs1
+     steps at full width with lambda drawn from the script's stream, the
+     bounded backward in each, the loss of a fixed (pair, lambda 0.5)
+     lowered; seconds per step, peak memory, the Dense weights' bytes;
+  11c. cli/train_hypermorph --cache-device --steps-per-dispatch 4 on 4
+     full-width volumes against 4 single steps (params bit-equal with
+     cudnn.deterministic), then cli/register and cli/test with --hyper 0.3
+     (the same Dice) and cli/sweep_hypermorph over lambda 0, 0.5 and 1 on
+     the labelled pair.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -178,15 +196,20 @@ import torch.nn.functional as F
 
 from voxelmorph_tpu_torch import _build, generators, losses
 from voxelmorph_tpu_torch.cli import register as register_cli
+from voxelmorph_tpu_torch.cli import sweep_hypermorph as sweep_cli
+from voxelmorph_tpu_torch.cli import test as test_cli
 from voxelmorph_tpu_torch.cli import test_unsupervised_seg as test_seg_cli
+from voxelmorph_tpu_torch.cli import train_hypermorph as hyper_train_cli
 from voxelmorph_tpu_torch.cli import train_instance as instance_cli
 from voxelmorph_tpu_torch.cli import warp as warp_cli
 from voxelmorph_tpu_torch.cli.train_cond_template import cond_template_terms
+from voxelmorph_tpu_torch.cli.train_hypermorph import hyp_stream, hypermorph_terms
 from voxelmorph_tpu_torch.cli.train_template import template_terms
 from voxelmorph_tpu_torch.cli.train_unsupervised_seg import unsupervised_seg_terms
 from voxelmorph_tpu_torch.models.atlas import (ConditionalTemplateCreation,
                                                ProbAtlasSegmentation, TemplateCreation,
                                                stream_step)
+from voxelmorph_tpu_torch.models.hyper import HyperVxmDense
 from voxelmorph_tpu_torch.models.modelio import load_model, save_model
 from voxelmorph_tpu_torch.models.unet import ConvBlock
 from voxelmorph_tpu_torch.models.vxm import (InstanceDense, Transform, VxmDense,
@@ -201,7 +224,7 @@ from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bw
                                                    warp_bounded_bwd_plain, windowed_transform)
 from voxelmorph_tpu_torch.ops.warp_gather import (launch_gather_bwd, launch_gather_fwd,
                                                   warp_gather_bwd_plain, warp_gather_plain)
-from voxelmorph_tpu_torch.py.utils import load_volfile
+from voxelmorph_tpu_torch.py.utils import dice, load_volfile
 from voxelmorph_tpu_torch.registration import (build_register_fn, enable_fast_warp,
                                                resolve_registration_model)
 from voxelmorph_tpu_torch.training import LossTerm, Trainer
@@ -3330,11 +3353,330 @@ def instance_check(smi):
                 cli_s=cli_s)
 
 
+# Phase 11, HyperMorph: the committed checkpoint (HyperVxmDense, default
+# features, svf_resolution 2, float32, trained at 80x96x112), its lambdas,
+# the steps of its recipe and the CLIs' lambda
+HYPER_CHECKPOINT = ROOT / "artifacts_r5" / "hyper_r5_0100_model.npz"
+HYPER_LAMBDAS = (0.0, 0.5, 1.0)
+HYPER_STEPS = 10
+HYPER_CLI_LAMBDA = 0.3
+# the least max|pos_flow(lambda 0) - pos_flow(lambda 1)| that shows the
+# hypernetwork conditioning the warp, in voxels
+HYPER_MIN_LAMBDA_EFFECT = 0.1
+# one bs2 HyperMorph step (flow head redrawn N(0, FLOW_STD)) card against
+# CPU at 80x96x112, each gradient tensor relative to its largest entry. The
+# generators' gradients of the encoder's first and third blocks are the
+# worst conditioned: on the chip host's CPU alone, the same step summed in
+# another order (two bs1 steps, or a loop over the samples in place of the
+# grouped conv) moves them by up to 7.1e-4, and its input scaled by
+# 1 + 1e-7 noise by 7.1e-4. Measured on an H100: 1.915e-3 and 1.572e-3 for
+# the third block's, every other tensor under 1.2e-3; the same with
+# cudnn.deterministic, with two bs1 steps (1.93e-3) and with a loop over
+# the samples (1.99e-3), so neither the grouped conv nor the batch sets
+# it; 2.56e-3 with the pair and its reverse as the batch. A zero gradient
+# differs by 1.
+HYPER_GRAD_GPU_VS_CPU_RTOL = 5e-3
+
+
+def hyper_serving(smi, profile):
+    """Phase 11a: the committed HyperMorph checkpoint (float32, as trained)
+    re-targeted to INSHAPE registers smooth_pair at each of HYPER_LAMBDAS;
+    the conv kernel is never launched on its hyper blocks; the card against
+    the CPU at the checkpoint's own 80x96x112, and bfloat16 against
+    float32. Everything in float32 runs with TF32 off. Returns the
+    launches and the ms per pair at lambda 0.5."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    model = resolve_registration_model(load_model(str(HYPER_CHECKPOINT), device="cuda"),
+                                       inshape=INSHAPE)
+    log(f"model: HyperVxmDense {model.inshape} dtype {model.dtype}, "
+        f"{sum(p.numel() for p in model.parameters())} params")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs, launches = {}, {}
+        for lam in HYPER_LAMBDAS:
+            reset_launches()
+            outs[lam] = build_register_fn(model, hyper=lam)(moving, fixed)
+            torch.cuda.synchronize()
+            launches[lam] = read_launches()
+            moved, warp = outs[lam]
+            check_warp_work(launches[lam], f"the HyperMorph register call at lambda {lam}",
+                            backward=False)
+            if tuple(warp.shape) != (1, *INSHAPE, 3) or not (
+                    torch.isfinite(moved).all() and torch.isfinite(warp).all()):
+                raise AssertionError(f"bad HyperMorph output at lambda {lam}")
+            log(f"lambda {lam}: max|warp| {warp.abs().max().item():.4f} voxels, "
+                f"mean|moved - fixed| {(moved - fixed).abs().mean().item():.5f} (before "
+                f"{(moving - fixed).abs().mean().item():.5f}); launches {launches[lam]}")
+        effect = (outs[0.0][1] - outs[1.0][1]).abs().max().item()
+        log(f"max|pos_flow(lambda 0) - pos_flow(lambda 1)| {effect:.4f} voxels "
+            f"(at least {HYPER_MIN_LAMBDA_EFFECT})")
+        if not effect >= HYPER_MIN_LAMBDA_EFFECT:
+            raise AssertionError("lambda does not change the HyperMorph warp")
+        with conv_kernel_mode(True):
+            reset_launches()
+            kernel_mode = build_register_fn(model, hyper=0.5)(moving, fixed)
+            torch.cuda.synchronize()
+            counts = read_launches()
+        same = all(torch.equal(a, b) for a, b in zip(kernel_mode, outs[0.5]))
+        log(f"with set_pallas_conv(True): conv launches {counts['conv']}, layout copies "
+            f"{counts['layout_copies']}, outputs bit-equal to cuDNN mode {same}")
+        if counts["conv"] or counts["layout_copies"] or not same:
+            raise AssertionError("a hyper block took the conv kernel, or its output changed")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+    reps = 5
+    register = build_register_fn(model, hyper=0.5)
+    register(moving, fixed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        register(moving, fixed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"bs1 float32 HyperMorph, lambda 0.5: {ms:.2f} ms per pair ({1e3 / ms:.4f} pairs/s); "
+        f"{smi}")
+    if profile:
+        profile_device("HyperMorph register call, lambda 0.5", lambda: register(moving, fixed),
+                       rows=20)
+    del model
+
+    # the card against the port's CPU run at the checkpoint's own shape;
+    # bfloat16 against float32 on the card
+    half = tuple(s // 2 for s in INSHAPE)
+    mv_h, fx_h = smooth_pair(half, "cpu")
+    results = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = load_model(str(HYPER_CHECKPOINT), device=device)
+        results[device] = [t.cpu() for t in build_register_fn(model, hyper=0.5)(
+            mv_h.to(device), fx_h.to(device))]
+        log(f"lambda 0.5 at {half} on {device}: {time.perf_counter() - t0:.2f} s")
+    flow_err = (results["cuda"][1] - results["cpu"][1]).abs().max().item()
+    image_err = (results["cuda"][0] - results["cpu"][0]).abs().max().item()
+    log(f"GPU vs CPU float32 at {half}: pos_flow max abs err {flow_err:.3e} (tol {FLOW_TOL}; "
+        f"max|pos_flow| {results['cpu'][1].abs().max().item():.3f}), y_source max abs err "
+        f"{image_err:.3e} (tol {IMAGE_TOL})")
+    if not (flow_err <= FLOW_TOL and image_err <= IMAGE_TOL):
+        raise AssertionError("the HyperMorph float32 GPU run disagrees with the CPU run")
+    bf16_model = resolve_registration_model(
+        load_model(str(HYPER_CHECKPOINT), device="cuda", dtype=torch.bfloat16), inshape=INSHAPE)
+    moved, warp = build_register_fn(bf16_model, hyper=0.5)(moving, fixed)
+    log("HyperMorph, lambda 0.5:")
+    bf16_vs_f32(moved, warp, *outs[0.5])
+    return dict(launches=launches[0.5], ms_per_pair=ms, lambda_effect_voxels=effect,
+                gpu_vs_cpu=[flow_err, image_err])
+
+
+def hyper_model(inshape, flow_std=None):
+    """scripts/train_hypermorph.py's model: a float32 HyperVxmDense of
+    default features, svf_resolution 2, from seed 0; ``flow_std`` redraws
+    the flow head's kernel as N(0, flow_std) (seed 1)."""
+    model = HyperVxmDense(inshape, nb_unet_features=[[16, 32, 32, 32],
+                                                     [32, 32, 32, 32, 32, 16, 16]],
+                          int_steps=7, int_resolution=2, svf_resolution=2,
+                          generator=torch.Generator().manual_seed(SEED))
+    if flow_std is not None:
+        with torch.no_grad():
+            model.vxm.flow.weight.normal_(0.0, flow_std,
+                                          generator=torch.Generator().manual_seed(SEED + 1))
+    return model
+
+
+def hyper_batch(moving, fixed, lambdas):
+    """The recipe's batch of len(lambdas) pairs, each with its lambda: the
+    pair, then the pair flipped along the i-th axis."""
+    n = len(lambdas)
+    src = torch.cat([moving if i == 0 else moving.flip(i) for i in range(n)])
+    trg = torch.cat([fixed if i == 0 else fixed.flip(i) for i in range(n)])
+    hyp = torch.tensor(lambdas, dtype=torch.float32, device=src.device)[:, None]
+    zero = torch.zeros((n, *src.shape[1:-1], 3), device=src.device)
+    return (src, trg, hyp), (trg, zero)
+
+
+def hyper_training(smi, profile):
+    """Phase 11b: train_hypermorph's recipe (MSE at sigma 0.05 weighted
+    1 - lambda, Grad-l2 x 2 weighted lambda, Adam 1e-4, float32, TF32 off):
+    one bs2 step with two lambdas, card against CPU at 80x96x112 (flow head
+    redrawn); then ten bs1 steps at INSHAPE with lambda drawn from
+    hyp_stream, the bounded backward in each, and the loss of a fixed
+    (pair, lambda 0.5) lowered. Returns the launches and readings."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    terms = hypermorph_terms("mse", 0.05, 2)
+
+    half = tuple(s // 2 for s in INSHAPE)
+    mv_h, fx_h = smooth_pair(half, "cpu")
+    batch = hyper_batch(mv_h, fx_h, [0.2, 0.8])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with window_halo("1") if device == "cpu" else contextlib.nullcontext():
+            trainer = Trainer(hyper_model(half, FLOW_STD), terms, device=device)
+            trainer.model.train()
+            inputs, targets = (tuple(a.to(device) for a in part) for part in batch)
+            reset_launches()
+            loss, _ = trainer.loss_fn(inputs, targets)
+            loss.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                check_warp_work(read_launches(), "the bs2 HyperMorph step at half width")
+        runs[device] = (loss.item(), {n: p.grad.detach().cpu()
+                                      for n, p in trainer.model.named_parameters()})
+        log(f"bs2 HyperMorph step at {half} on {device}: {time.perf_counter() - t0:.2f} s")
+        del trainer, loss
+    card_vs_cpu_rel = compare_grads(f"HyperMorph GPU vs CPU, bs2, lambda 0.2 and 0.8, {half}",
+                                    *runs["cuda"], *runs["cpu"], HYPER_GRAD_GPU_VS_CPU_RTOL)
+    del runs
+
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    model = hyper_model(INSHAPE)
+    dense_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                      if "_gen." in n or n.startswith("hyp_dense_"))
+    trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+    probe_in, probe_tg = hyper_batch(moving, fixed, [0.5])
+
+    def probe_loss():
+        model.train()
+        with torch.no_grad():
+            return trainer.loss_fn(probe_in, probe_tg)[0].item()
+
+    before = probe_loss()
+    stream = hyp_stream(1, 0.2)
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step_s, step_losses, drawn, counts = [], [], [], None
+    for step in range(HYPER_STEPS):
+        (hyp,) = next(stream)
+        drawn.append(float(hyp[0, 0]))
+        reset_launches()
+        t0 = time.perf_counter()
+        step_losses.append(trainer.train_step((moving, fixed, hyp), (fixed, zero))["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+        counts = read_launches()
+        check_warp_work(counts, f"HyperMorph train step {step}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = probe_loss()
+    median_s = float(np.median(step_s[1:]))
+    log("lambdas drawn: " + ", ".join(f"{x:.4f}" for x in drawn))
+    log("step losses: " + ", ".join(f"{x:.6f}" for x in step_losses))
+    log(f"HyperMorph float32 train step, bs1, {INSHAPE}: " + ", ".join(
+        f"{x:.4f}" for x in step_s) + f" s/step (median after the first {median_s:.4f}); peak "
+        f"memory allocated {peak:.3f} GiB; the hypernetwork's Dense weights "
+        f"{dense_bytes / 2 ** 30:.3f} GiB, {4 * dense_bytes / 2 ** 30:.3f} with their gradients "
+        f"and Adam's moments; launches of the last step {counts}; {smi}")
+    log(f"loss at (pair, lambda 0.5): {before:.6f} before the {HYPER_STEPS} steps, "
+        f"{after:.6f} after")
+    if not (np.isfinite(step_losses).all() and np.isfinite(after) and after < before):
+        raise AssertionError("the HyperMorph steps did not lower the loss at lambda 0.5")
+    if profile:
+        profile_device("HyperMorph train step", lambda: trainer.train_step(
+            probe_in, probe_tg)["loss"].item(), rows=30)
+    return dict(launches=counts, step_s=median_s, peak_gib=peak,
+                dense_gib=dense_bytes / 2 ** 30, gpu_vs_cpu_rel=card_vs_cpu_rel,
+                probe_loss=[before, after])
+
+
+def hyper_clis(smi):
+    """Phase 11c: cli/train_hypermorph --cache-device with
+    --steps-per-dispatch against single steps on 4 full-width volumes, then
+    cli/register, cli/test and cli/sweep_hypermorph on the labelled pair."""
+    moving, fixed, src_lab, trg_lab = labelled_pair(INSHAPE, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        vols = [moving[0, ..., 0], fixed[0, ..., 0], moving[0, ..., 0].flip(0),
+                fixed[0, ..., 0].flip(1)]
+        for i, vol in enumerate(vols):
+            np.savez(f"{tmp}/scan{i}.npz", vol=vol.numpy())
+        Path(f"{tmp}/list.txt").write_text("".join(f"{tmp}/scan{i}.npz\n" for i in range(4)))
+        common = ["--img-list", f"{tmp}/list.txt", "--epochs", "1", "--steps-per-epoch",
+                  str(DISPATCH_STEPS), "--cache-device", "--device", "cuda"]
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        runs = {}
+        try:
+            for name, extra in (("single", []),
+                                ("dispatch", ["--steps-per-dispatch", str(DISPATCH_STEPS)])):
+                reset_launches()
+                t0 = time.perf_counter()
+                trainer = hyper_train_cli.main([*common, *extra, "--model-dir", f"{tmp}/{name}"])
+                torch.cuda.synchronize()
+                runs[name] = dict(s=time.perf_counter() - t0, launches=read_launches(),
+                                  fetches=trainer.metric_fetches,
+                                  params={n: p.detach().clone()
+                                          for n, p in trainer.model.named_parameters()})
+                del trainer
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        one, many = runs["single"], runs["dispatch"]
+        equal = all(torch.equal(one["params"][n], p) for n, p in many["params"].items())
+        worst = max(((one["params"][n] - p).abs().max() / p.abs().max()).item()
+                    for n, p in many["params"].items())
+        log(f"cli/train_hypermorph --cache-device, {DISPATCH_STEPS} steps at {INSHAPE}: "
+            f"--steps-per-dispatch {DISPATCH_STEPS} against single steps params bit-equal "
+            f"{equal} (cudnn.deterministic), largest difference {worst:.3e} of a tensor's "
+            f"largest magnitude (tol {DISPATCH_RTOL}); {one['s']:.2f} and {many['s']:.2f} s "
+            f"in all (two checkpoints each); metric fetches {one['fetches']} and "
+            f"{many['fetches']}; launches of the dispatch {many['launches']}")
+        if not (equal or worst <= DISPATCH_RTOL):
+            raise AssertionError("the HyperMorph dispatch differs from single steps")
+        check_warp_work(many["launches"], "the HyperMorph dispatch")
+        launches = {k: v // DISPATCH_STEPS for k, v in many["launches"].items()}
+        del runs, one, many
+
+        # the labelled pair, and the checkpoint re-targeted to its shape
+        for name, vol, lab in (("moving", moving, src_lab), ("fixed", fixed, trg_lab)):
+            np.savez(f"{tmp}/{name}.npz", vol=vol[0, ..., 0].numpy(), seg=lab.numpy())
+        Path(f"{tmp}/pairs.txt").write_text(f"{tmp}/moving.npz {tmp}/fixed.npz\n")
+        np.save(f"{tmp}/labels.npy", np.arange(1, SEMI_LABELS + 1))
+        save_model(f"{tmp}/hyper_full.npz", resolve_registration_model(
+            load_model(str(HYPER_CHECKPOINT), device="cpu"), inshape=INSHAPE))
+        lam = str(HYPER_CLI_LAMBDA)
+        t0 = time.perf_counter()
+        register_cli.main(["--moving", f"{tmp}/moving.npz", "--fixed", f"{tmp}/fixed.npz",
+                           "--model", f"{tmp}/hyper_full.npz", "--hyper", lam,
+                           "--moved", f"{tmp}/moved.nii", "--warp", f"{tmp}/warp.nii",
+                           "--device", "cuda"])
+        register_s = time.perf_counter() - t0
+        warp = torch.from_numpy(load_volfile(f"{tmp}/warp.nii")).cuda()
+        carried = warp_ops.transform(src_lab.cuda().float(), warp, interp_method="nearest",
+                                     window_halo=None).cpu().numpy()
+        register_dice = float(np.mean(dice(carried, trg_lab.numpy())))
+        log(f"cli/register --hyper {lam} at {INSHAPE}: {register_s:.2f} s; max|warp| "
+            f"{warp.abs().max().item():.3f} voxels; Dice of the labels carried by its warp "
+            f"{register_dice:.4f} (unregistered "
+            f"{np.mean(dice(src_lab.numpy(), trg_lab.numpy())):.4f})")
+        t0 = time.perf_counter()
+        scores = test_cli.main(["--model", f"{tmp}/hyper_full.npz", "--pairs",
+                                f"{tmp}/pairs.txt", "--img-suffix", "", "--seg-prefix", "",
+                                "--hyper", lam, "--device", "cuda"])
+        test_s = time.perf_counter() - t0
+        log(f"cli/test --hyper {lam}: Dice {scores[0]:.4f}, {test_s:.2f} s")
+        if abs(scores[0] - register_dice) > 1e-4:
+            raise AssertionError(f"cli/test's Dice {scores[0]} differs from cli/register's "
+                                 f"{register_dice}")
+        t0 = time.perf_counter()
+        report = sweep_cli.main(["--model", str(HYPER_CHECKPOINT), "--pairs",
+                                 f"{tmp}/pairs.txt", "--labels", f"{tmp}/labels.npy",
+                                 "--lambdas", *map(str, HYPER_LAMBDAS),
+                                 "--out", f"{tmp}/sweep.json", "--device", "cuda"])
+        sweep_s = time.perf_counter() - t0
+    log(f"cli/sweep_hypermorph over {HYPER_LAMBDAS}: {sweep_s:.2f} s; {smi}")
+    if [r["lambda"] for r in report["sweep"]] != list(HYPER_LAMBDAS) or not all(
+            0.0 <= r["dice_mean"] <= 1.0 for r in report["sweep"]):
+        raise AssertionError(f"bad sweep report {report}")
+    return dict(launches=launches, register_dice=register_dice, test_dice=float(scores[0]),
+                sweep=report["sweep"], identity_dice=report["identity_dice_mean"],
+                cli_s=dict(register=register_s, test=test_s, sweep=sweep_s))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="print profiler breakdowns of a register call and a train "
-                             "step, with and without the conv kernel")
+                             "step, with and without the conv kernel, and of HyperMorph's")
     parser.add_argument("--compare-warp-source", nargs="+", default=[], metavar="CU",
                         help="other copies of csrc/warp_bounded.cu to build and time "
                              "beside the package's warp kernels in phases 2 and 2b")
@@ -3494,6 +3836,18 @@ def main(argv=None) -> int:
     instance = instance_check(smi)
     log(f"phase 10: {time.perf_counter() - t:.2f} s")
 
+    t = phase("11a. HyperMorph registration at full width")
+    hyper_serve = hyper_serving(smi, args.profile)
+    log(f"phase 11a: {time.perf_counter() - t:.2f} s")
+
+    t = phase("11b. HyperMorph training at full width")
+    hyper_train = hyper_training(smi, args.profile)
+    log(f"phase 11b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("11c. the HyperMorph CLIs at full width")
+    hyper_cli = hyper_clis(smi)
+    log(f"phase 11c: {time.perf_counter() - t:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -3510,7 +3864,10 @@ def main(argv=None) -> int:
              "train_step_prob_atlas": prob[False]["launches"],
              "train_step_prob_atlas_conv": prob[True]["launches"],
              "test_unsupervised_seg": prob["test_seg"][INSHAPE],
-             "train_step_instance": instance["launches"]}
+             "train_step_instance": instance["launches"],
+             "register_hyper": hyper_serve["launches"],
+             "train_step_hyper": hyper_train["launches"],
+             "train_step_hyper_cached_dispatch": hyper_cli["launches"]}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -3586,6 +3943,10 @@ def main(argv=None) -> int:
         prob_atlas={("conv_kernel" if k else "cudnn"): {
             key: val for key, val in prob[k].items() if key != "launches"} for k in (False, True)},
         instance={k: v for k, v in instance.items() if k != "launches"},
+        hypermorph=dict(
+            serving={k: v for k, v in hyper_serve.items() if k != "launches"},
+            training={k: v for k, v in hyper_train.items() if k != "launches"},
+            clis={k: v for k, v in hyper_cli.items() if k != "launches"}),
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

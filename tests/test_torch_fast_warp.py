@@ -227,11 +227,14 @@ def test_cli_test_defaults_to_the_gpu(tmp_path):
 
 
 def test_cli_test_refuses_hypermorph(tmp_path):
-    """HyperMorph is not ported: its checkpoint raises, whatever --hyper says."""
+    """A checkpoint whose config says hyper but whose params are a plain
+    VxmDense's is refused, whatever --hyper says: the strict load names the
+    hypernetwork's missing generator weights (HyperMorph itself is held to
+    JAX in tests/test_torch_hyper_cli.py)."""
     _, pairs = _blob_data(tmp_path)
     jm, jp = jax_load_model(CHECKPOINT)
     path = str(tmp_path / "hyper.npz")
     jax_save_model(path, jm.clone(inshape=(16, 16, 16), dtype=jnp.float32, hyper=True), jp)
-    with pytest.raises(NotImplementedError, match="HyperMorph"):
+    with pytest.raises(RuntimeError, match="kernel_gen"):
         test_cli.main(["--model", path, "--pairs", pairs, "--img-suffix", "",
                        "--seg-prefix", "", "--hyper", "0.3", "--device", "cpu"])

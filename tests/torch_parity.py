@@ -38,6 +38,18 @@ def flatten(tree, prefix=""):
     return out
 
 
+def unflatten(flat):
+    """The inverse of ``flatten``: ``a||b||leaf`` keys as a nested dict."""
+    nested = {}
+    for key, val in flat.items():
+        *path, leaf = key.split("||")
+        node = nested
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return nested
+
+
 def assert_close(actual, expected, atol, err_msg=""):
     """``actual`` within ``atol`` of ``expected``, whose largest magnitude
     must be at least ten times ``atol``."""

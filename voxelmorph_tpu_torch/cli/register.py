@@ -1,4 +1,4 @@
-"""Register a moving to a fixed image with a trained VxmDense model.
+"""Register a moving to a fixed image with a trained VxmDense or HyperMorph model.
 
 The PyTorch counterpart of ``scripts/register.py``, with its flags:
 
@@ -6,8 +6,10 @@ The PyTorch counterpart of ``scripts/register.py``, with its flags:
         --fixed f.nii.gz --model model.npz --moved moved.nii.gz --warp warp.nii.gz
 
 ``--fast-warp`` warps the moving image by bounded warps of the integration
-root (``registration.enable_fast_warp``); the warp is unchanged. It runs on
-the GPU unless ``--device cpu`` is given.
+root (``registration.enable_fast_warp``); the warp is unchanged (a
+HyperMorph model takes the exact warp, as in the JAX package). ``--hyper``
+is a HyperMorph model's hyperparameter. It runs on the GPU unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ def parse_args(argv=None):
     parser.add_argument('--warp', help='where to write the dense displacement field')
     parser.add_argument('--multichannel', action='store_true',
                         help='volumes already carry a trailing channel axis')
+    parser.add_argument('--hyper', type=float, default=0.5,
+                        help='hyperparameter fed to HyperMorph models (HyperVxmDense; '
+                             'ignored by others)')
     parser.add_argument('--fast-warp', action='store_true',
                         help='warp the moving image via the phase-warp fast path (bounded '
                              'warps by the integration root instead of one full-res gather; '
@@ -50,7 +55,7 @@ def main(argv=None):
     model = resolve_registration_model(load_model(args.model, device=device))
     if args.fast_warp:
         model = enable_fast_warp(model)
-    moved, warp = register_pair(model, moving, fixed)
+    moved, warp = register_pair(model, moving, fixed, hyper=args.hyper)
     if args.warp:
         save_volfile(np.asarray(warp).squeeze(), args.warp, fixed_affine)
     save_volfile(np.asarray(moved).squeeze(), args.moved, fixed_affine)

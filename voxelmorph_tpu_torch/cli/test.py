@@ -10,7 +10,9 @@ along with nearest interpolation in the same call, and prints the hard-label
 Dice against the fixed segmentation; the first call (which builds the
 kernels) is left out of the average time. ``--fast-warp`` times the
 phase-warp path; the Dice, computed on the segmentation carried by pos_flow,
-is the same. It runs on the GPU unless ``--device cpu`` is given.
+is the same. ``--hyper`` is a HyperMorph model's hyperparameter
+(``registration.build_eval_register_fn``). It runs on the GPU unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ def parse_args(argv=None):
     parser.add_argument('--seg-prefix', help='string prepended to every seg path in the list')
     parser.add_argument('--labels', help='optional label list to compute dice for (npy format)')
     parser.add_argument('--hyper', type=float, default=0.5,
-                        help='hyperparameter for HyperMorph models (not ported: a HyperMorph '
-                             'checkpoint raises; ignored by others)')
+                        help='hyperparameter for HyperMorph models (HyperVxmDense; ignored '
+                             'by others)')
     parser.add_argument('--multichannel', action='store_true',
                         help='volumes already carry a trailing channel axis')
     parser.add_argument('--fast-warp', action='store_true',
@@ -54,7 +56,7 @@ def main(argv=None):
     from .. import resolve_device
     from ..models.modelio import load_model
     from ..py.utils import dice, load_volfile, read_pair_list
-    from ..registration import (build_register_seg_fn, enable_fast_warp,
+    from ..registration import (build_eval_register_fn, enable_fast_warp,
                                 resolve_registration_model)
 
     device = resolve_device(args.device)
@@ -73,7 +75,7 @@ def main(argv=None):
     model = resolve_registration_model(load_model(args.model, device=device))
     if args.fast_warp:
         model = enable_fast_warp(model)
-    register = build_register_seg_fn(model)
+    register = build_eval_register_fn(model, hyper=args.hyper)
 
     timings, scores = [], []
     for i, ((mov_img, fix_img), (mov_seg, fix_seg)) in enumerate(zip(img_pairs, seg_pairs)):

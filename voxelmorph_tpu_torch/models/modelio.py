@@ -19,6 +19,7 @@ import torch
 
 from .. import resolve_device
 from .atlas import ConditionalTemplateCreation, ProbAtlasSegmentation, TemplateCreation
+from .hyper import HyperVxmDense
 from .vxm import (InstanceDense, VxmDense, VxmDenseSemiSupervisedPointCloud,
                   VxmDenseSemiSupervisedSeg)
 
@@ -28,7 +29,7 @@ __all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "state_to_jax"
 # the model classes a checkpoint may name, by the JAX class name
 _MODELS = {cls.__name__: cls for cls in (
     VxmDense, VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud, InstanceDense,
-    TemplateCreation, ConditionalTemplateCreation, ProbAtlasSegmentation)}
+    TemplateCreation, ConditionalTemplateCreation, ProbAtlasSegmentation, HyperVxmDense)}
 
 _SEP = "||"
 _EXTRA = "__extra__"

@@ -30,6 +30,12 @@ conv block in the backward pass instead of keeping its intermediates
 and parameters, less memory, one more forward of each block. It applies
 only while autograd records, so serving under ``torch.no_grad`` pays
 nothing.
+
+``hyper`` (HyperMorph) makes every conv block's convolution, and its
+``resfix``, a ``HyperConv``, whose kernel and bias two Linear layers
+generate per sample from a hypernetwork embedding passed to ``forward``. As in the JAX package
+a hyper block never takes the conv kernel or the lean-dw convolution, so a
+hyper U-Net keeps the contiguous layout in every mode.
 """
 
 from __future__ import annotations
@@ -45,8 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import conv3
 from ..py.utils import default_unet_features
 
-__all__ = ["Unet", "ConvBlock", "build_feature_lists", "he_normal_", "lecun_normal_",
-           "max_pool", "ACTIVATIONS"]
+__all__ = ["Unet", "ConvBlock", "HyperConv", "build_feature_lists", "he_normal_",
+           "lecun_normal_", "max_pool", "ACTIVATIONS"]
 
 # flax.linen's activations by name, as torch functions of channels-first
 # tensors (flax's defaults: gelu's tanh approximation, leaky_relu's slope
@@ -101,6 +107,56 @@ def lecun_normal_(weight: torch.Tensor,
     return he_normal_(weight, generator, scale=1.0)
 
 
+class HyperConv(nn.Module):
+    """A k3 SAME convolution whose kernel and bias are generated per sample
+    from a hypernetwork embedding, as the JAX package's ``HyperConv``.
+
+    ``kernel_gen`` maps the embedding ``(B, nb_hyp_units)`` to the flat
+    kernel in the JAX order ``(*k, ci, co)``, ``bias_gen`` to the bias; both
+    run in ``dtype``, the matrix product rounded before its bias is added,
+    as flax's Dense. Their biases are the "base" kernel and bias: the kernel
+    a normal truncated at two std of std sqrt(2 / fan_in) (flax's
+    ``truncated_normal`` times the he std, not rescaled to keep that std),
+    the bias zero; their weights are N(0, 1e-3). Each sample is convolved
+    with its own kernel as one grouped convolution (``groups=B``) in
+    ``dtype``, and the bias is added to the rounded output.
+    """
+
+    def __init__(self, in_features: int, features: int, ndims: int, nb_hyp_units: int,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.features = features
+        self.ndims = ndims
+        self.dtype = dtype
+        fan_in = 3 ** ndims * in_features
+        self.kernel_gen = nn.Linear(nb_hyp_units, fan_in * features)
+        self.bias_gen = nn.Linear(nb_hyp_units, features)
+        he_std = (2.0 / fan_in) ** 0.5
+        with torch.no_grad():
+            self.kernel_gen.weight.normal_(0.0, 1e-3, generator=generator)
+            nn.init.trunc_normal_(self.kernel_gen.bias, 0.0, he_std, -2.0 * he_std,
+                                  2.0 * he_std, generator=generator)
+            self.bias_gen.weight.normal_(0.0, 1e-3, generator=generator)
+            self.bias_gen.bias.zero_()
+
+    def _dense(self, layer: nn.Linear, hyp: torch.Tensor) -> torch.Tensor:
+        """flax's Dense in ``dtype``: the product rounded, then the bias."""
+        return F.linear(hyp.to(self.dtype), layer.weight.to(self.dtype)) \
+            + layer.bias.to(self.dtype)
+
+    def forward(self, x: torch.Tensor, hyp: torch.Tensor) -> torch.Tensor:
+        nd, ci, co = self.ndims, self.in_features, self.features
+        batch, spatial = x.shape[0], x.shape[2:]
+        kernels = self._dense(self.kernel_gen, hyp).view(batch, *(3,) * nd, ci, co)
+        kernels = kernels.permute(0, nd + 2, nd + 1, *range(1, nd + 1))  # (B, co, ci, *k)
+        bias = self._dense(self.bias_gen, hyp)
+        out = getattr(F, f"conv{nd}d")(
+            x.to(self.dtype).reshape(1, batch * ci, *spatial),
+            kernels.reshape(batch * co, ci, *(3,) * nd), padding=1, groups=batch)
+        return out.view(batch, co, *spatial) + bias.view(batch, co, *[1] * nd)
+
+
 class ConvBlock(nn.Module):
     """conv(k3, SAME) [+ residual] + LeakyReLU(0.2), computed in ``dtype``.
 
@@ -115,18 +171,31 @@ class ConvBlock(nn.Module):
     when the block has one and no residual; otherwise the residual (the
     input, or its ``resfix`` conv on cuDNN where the widths differ) is added
     to the conv's output and the activation follows, in ``dtype``, as in
-    JAX. The parameters are the same in every case.
+    JAX. The parameters are the same in every case. With ``hyper`` the
+    conv and the ``resfix`` are ``HyperConv``s of an embedding of
+    ``nb_hyp_units`` features, which ``forward`` takes as ``hyp``, whatever
+    the dispatch mode (JAX checks ``hyper`` first).
     """
 
     def __init__(self, in_features: int, features: int, ndims: int = 3,
                  dtype=torch.float32, do_res: bool = False, include_activation: bool = True,
-                 generator: Optional[torch.Generator] = None, strides: int = 1):
+                 generator: Optional[torch.Generator] = None, strides: int = 1,
+                 hyper: bool = False, nb_hyp_units: Optional[int] = None):
         super().__init__()
         self.ndims = ndims
         self.strides = int(strides)
         self.dtype = dtype
         self.do_res = do_res
         self.include_activation = include_activation
+        self.hyper = hyper
+        if hyper:
+            if nb_hyp_units is None:
+                raise ValueError("a hyper ConvBlock needs nb_hyp_units")
+            self.conv = HyperConv(in_features, features, ndims, nb_hyp_units, dtype, generator)
+            if do_res and features != in_features:
+                self.resfix = HyperConv(in_features, features, ndims, nb_hyp_units, dtype,
+                                        generator)
+            return
         conv_cls = getattr(nn, f"Conv{ndims}d")
         self.conv = conv_cls(in_features, features, 3, padding=1)
         # flax's init: he-normal kernel, zero bias
@@ -157,11 +226,14 @@ class ConvBlock(nn.Module):
             out = fn(F.pad(x, pads), weight, stride=strides)
         return out + conv.bias.to(self.dtype).view(-1, *([1] * self.ndims))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x.to(self.dtype)
         fused = self.include_activation and not self.do_res
         slope = 0.2 if fused else None
-        if conv3.pallas_conv_enabled() and self.ndims == 3 and self.strides == 1 \
+        if self.hyper:
+            out = self.conv(x, hyp)
+            fused = False
+        elif conv3.pallas_conv_enabled() and self.ndims == 3 and self.strides == 1 \
                 and x.dim() == 5:
             nbytes = x.element_size()
             takes = conv3.jax_kernel_takes(x.shape[1], self.conv.out_channels, *x.shape[2:],
@@ -177,7 +249,12 @@ class ConvBlock(nn.Module):
         if fused:
             return out
         if self.do_res:
-            out = out + (self._flax_conv(self.resfix, x) if hasattr(self, "resfix") else x)
+            if not hasattr(self, "resfix"):
+                out = out + x
+            elif self.hyper:
+                out = out + self.resfix(x, hyp)
+            else:
+                out = out + self._flax_conv(self.resfix, x)
         if self.include_activation:
             out = F.leaky_relu(out, 0.2)
         return out
@@ -251,7 +328,9 @@ class Unet(nn.Module):
 
     ``in_features`` is the channel count of the input; ``out_features`` that
     of the output. The other arguments follow the JAX Unet; ``generator``
-    draws the initial weights.
+    draws the initial weights. With ``hyper``, ``forward(x, hyp)`` takes the
+    hypernetwork embedding ``(B, nb_hyp_units)`` that every block's
+    ``HyperConv`` reads.
     """
 
     def __init__(self, ndims: int, in_features: int, nb_features=None,
@@ -259,9 +338,10 @@ class Unet(nn.Module):
                  nb_conv_per_level: int = 1, do_res: bool = False, nb_upsample_skips: int = 0,
                  final_activation_function: Optional[str] = None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None,
-                 remat: bool = True):
+                 remat: bool = True, hyper: bool = False, nb_hyp_units: Optional[int] = None):
         super().__init__()
         self.remat = remat
+        self.hyper = hyper
         if final_activation_function is not None and \
                 final_activation_function not in ACTIVATIONS:
             raise ValueError(f"unknown final_activation_function '{final_activation_function}'")
@@ -282,7 +362,8 @@ class Unet(nn.Module):
         def block(name, cin, nf, include_activation=True):
             self.add_module(name, ConvBlock(cin, nf, ndims, dtype=dtype, do_res=do_res,
                                             include_activation=include_activation,
-                                            generator=generator))
+                                            generator=generator, hyper=hyper,
+                                            nb_hyp_units=nb_hyp_units))
             return nf
 
         # a final activation replaces the LeakyReLU of the last block: the
@@ -308,34 +389,39 @@ class Unet(nn.Module):
                        not (final_act and num == len(self.final_convs) - 1))
         self.out_features = ch
 
-    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """The conv block ``name`` on ``x``, rematerialised in the backward
-        when ``remat`` and autograd records."""
+    def _block(self, name: str, x: torch.Tensor,
+               hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv block ``name`` on ``x`` (and the embedding ``hyp`` of a
+        hyper U-Net), rematerialised in the backward when ``remat`` and
+        autograd records."""
         block = getattr(self, name)
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
-        return block(x)
+            return checkpoint(block, x, hyp, use_reentrant=False, preserve_rng_state=False)
+        return block(x, hyp)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.hyper and hyp is None:
+            raise ValueError("a hyper U-Net needs the embedding hyp")
         ncpl = self.nb_conv_per_level
-        # the conv kernel's layout, kept between its convs
-        cl = conv3.pallas_conv_enabled() and self.ndims == 3
+        # the conv kernel's layout, kept between its convs (a hyper block
+        # never takes the kernel)
+        cl = conv3.pallas_conv_enabled() and self.ndims == 3 and not self.hyper
         enc_layers = []
         last = x.to(self.dtype)
         for level in range(self.nb_levels - 1):
             for conv in range(ncpl):
-                last = self._block(f"enc_conv_{level}_{conv}", last)
+                last = self._block(f"enc_conv_{level}_{conv}", last, hyp)
             enc_layers.append(last)
             last = max_pool(last, self.max_pool[level], self.ndims, cl)
         for level in range(self.nb_levels - 1):
             real_level = self.nb_levels - level - 2
             for conv in range(ncpl):
-                last = self._block(f"dec_conv_{real_level}_{conv}", last)
+                last = self._block(f"dec_conv_{real_level}_{conv}", last, hyp)
             if level < self.nb_levels - 1 - self.nb_upsample_skips:
                 last = _upsample_nearest(last, self.max_pool[real_level], self.ndims, cl)
                 last = torch.cat([last, enc_layers.pop()], dim=1)
         for num in range(len(self.final_convs)):
-            last = self._block(f"dec_final_conv_{num}", last)
+            last = self._block(f"dec_final_conv_{num}", last, hyp)
         if self.final_activation_function is not None:
             last = ACTIVATIONS[self.final_activation_function](last)
         return last

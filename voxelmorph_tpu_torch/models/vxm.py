@@ -62,9 +62,13 @@ class VxmDense(nn.Module):
     and ``final_activation_function`` are the U-Net's (the JAX package's
     ``Unet`` fields, which its VxmDense leaves at their defaults); a config
     names them only when they are set.
-    ``forward(source, target, generator=None)`` returns a dict with
-    y_source, (y_target,) svf, preint_flow, postint_flow, pos_flow,
-    (neg_flow,) (flow_params,) unet_out and reg. With ``use_probs`` the flow
+    ``forward(source, target, hyp=None, generator=None)`` returns a dict
+    with y_source, (y_target,) svf, preint_flow, postint_flow, pos_flow,
+    (neg_flow,) (flow_params,) unet_out and reg. With ``hyper`` the U-Net's
+    convs are HyperConvs of the embedding ``hyp`` ``(B, nb_hyp_units)``
+    (``models.hyper.HyperVxmDense`` makes it); flax infers that width from
+    the input, so it is a constructor argument here, left out of
+    ``config`` as the JAX module has no such field. With ``use_probs`` the flow
     is, in training mode, a sample of the predicted distribution with noise
     drawn from ``generator``, and in eval mode its mean. With
     ``fast_warp_phases`` s > 0 (``registration.enable_fast_warp``) the eval
@@ -83,13 +87,11 @@ class VxmDense(nn.Module):
                  hyper: bool = False, dtype=torch.float32, fast_warp_phases: int = 0,
                  fast_warp_halo: int = 2, do_res: bool = False,
                  final_activation_function: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 nb_hyp_units: int = 128, generator: Optional[torch.Generator] = None):
         super().__init__()
         ndims = len(inshape)
         if ndims not in (1, 2, 3):
             raise ValueError(f"ndims should be one of 1, 2, or 3. found: {ndims}")
-        if hyper:
-            raise NotImplementedError("HyperMorph (hyper=True) is not ported yet")
         if reg_field.lower() not in ("svf", "preintegrated", "postintegrated", "warp"):
             raise ValueError(f'Unknown option "{reg_field}" for reg_field.')
         dtype = _DTYPES.get(dtype, dtype)
@@ -117,6 +119,8 @@ class VxmDense(nn.Module):
         self.dtype = dtype
         self.fast_warp_phases = fast_warp_phases
         self.fast_warp_halo = fast_warp_halo
+        self.hyper = hyper
+        self.nb_hyp_units = nb_hyp_units
 
         # decoder upsamplings to skip so the unet emits at svf resolution
         nb_upsample_skips = int(np.floor(np.log(svf_resolution) / np.log(2)))
@@ -125,7 +129,7 @@ class VxmDense(nn.Module):
                          nb_conv_per_level=nb_unet_conv_per_level, do_res=do_res,
                          nb_upsample_skips=nb_upsample_skips,
                          final_activation_function=final_activation_function, dtype=dtype,
-                         generator=generator)
+                         generator=generator, hyper=hyper, nb_hyp_units=nb_hyp_units)
         nf = self.unet.out_features
         conv_cls = getattr(nn, f"Conv{ndims}d")
         self.flow = conv_cls(nf, ndims, 3, padding=1)
@@ -139,9 +143,10 @@ class VxmDense(nn.Module):
                 self.log_sigma.bias.fill_(-10.0)
 
     def forward(self, source: torch.Tensor, target: torch.Tensor,
+                hyp: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> dict:
         x = torch.cat([source, target], dim=-1).movedim(-1, 1)
-        x = self.unet(x).float()
+        x = self.unet(x, hyp).float()
         outputs = {"unet_out": x.movedim(1, -1)}
         conv = getattr(F, f"conv{self.ndims}d")
         flow = conv(x, self.flow.weight, self.flow.bias, padding=1).movedim(1, -1)
