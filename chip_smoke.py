@@ -10,6 +10,9 @@ Run from the root of the repository:
         # csrc/warp_bounded.cu) on phases 2 and 2b's inputs
     python3 chip_smoke.py --compare-gather-source OLD/warp_gather.cu
         # also time an earlier commit's gather kernels on phase 2e's inputs
+    python3 chip_smoke.py --conditioning
+        # also the readings behind phase 8's and 12c's card-vs-CPU limits and
+        # 12c's dispatch halo
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
@@ -170,7 +173,40 @@ Phases:
      full-width volumes against 4 single steps (params bit-equal with
      cudnn.deterministic), then cli/register and cli/test with --hyper 0.3
      (the same Dice) and cli/sweep_hypermorph over lambda 0, 0.5 and 1 on
-     the labelled pair.
+     the labelled pair;
+  12a. SynthMorph's synthesis (labels_to_image) on Voronoi label maps of
+     the committed checkpoint artifacts_r5/synth_w25_00010.npz's 46 label
+     values, at 80x96x112 (46 output labels) and at 160x192x224 (the first
+     30): the card against the CPU on the same draws at 80x96x112 (image,
+     one-hot, warp and inverse), the one-hot's channel sums against the
+     warped indicator of the output labels, the fused one-hot warp against
+     the packed (1 + L)-channel interpn and the time of each, ms per
+     synthesized pair and its peak memory;
+  12b. the checkpoint's VxmDense (bfloat16) re-targeted to 160x192x224
+     registers smooth_pair at bs1 in cuDNN and conv-kernel mode (one launch
+     per conv block, no layout copy), bfloat16 against float32, and the
+     card against the CPU in float32 at 80x96x112; ms per pair; the conv
+     kernel at that call's 10 conv shapes (64 wide; 2 -> 64 at full width,
+     the decoder's 128 -> 64), forward and input gradient, bfloat16 and
+     float32, against its plain version as in 2d, timed beside cuDNN;
+  12c. the checkpoint's recipe (80x96x112, 46 labels, bfloat16,
+     shared_contrast 0.5, Dice + Grad + NCC at 0.25, Adam 1e-4, bs1): one
+     float32 step's loss and gradients with the conv kernel against cuDNN
+     and on the card against the CPU on the same draws; ten bfloat16 steps
+     in cuDNN mode and three with the conv kernel (s per step, peak
+     memory), each followed by a step under set_sync_debug_mode("error");
+     fit_cached_labels' 4-step dispatch against 4 single steps of the cached
+     generator, every warp bounded (VXM_WINDOW_HALO=4), params bit-equal
+     with cudnn.deterministic;
+  12d. the same architecture from seed 0 at 160x192x224 (46 labels in, 30
+     out, bfloat16): one float32 step's loss and gradients with the conv
+     kernel against cuDNN on the same draws, then three bfloat16 steps in
+     each conv mode: s per step, peak memory (with --profile, the device
+     time of one step by kernel);
+  12e. cli/train_synthmorph --cache-device --steps-per-dispatch 4
+     --init-weights the checkpoint on 4 maps at 80x96x112 padded to
+     160x192x224 (--out-shape), then cli/register and cli/test of the
+     checkpoint it wrote on the labelled pair (the same Dice).
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -200,17 +236,22 @@ from voxelmorph_tpu_torch.cli import sweep_hypermorph as sweep_cli
 from voxelmorph_tpu_torch.cli import test as test_cli
 from voxelmorph_tpu_torch.cli import test_unsupervised_seg as test_seg_cli
 from voxelmorph_tpu_torch.cli import train_hypermorph as hyper_train_cli
+from voxelmorph_tpu_torch.cli import train_synthmorph as synth_train_cli
 from voxelmorph_tpu_torch.cli import train_instance as instance_cli
 from voxelmorph_tpu_torch.cli import warp as warp_cli
 from voxelmorph_tpu_torch.cli.train_cond_template import cond_template_terms
 from voxelmorph_tpu_torch.cli.train_hypermorph import hyp_stream, hypermorph_terms
+from voxelmorph_tpu_torch.cli.train_synthmorph import synthmorph_terms
 from voxelmorph_tpu_torch.cli.train_template import template_terms
 from voxelmorph_tpu_torch.cli.train_unsupervised_seg import unsupervised_seg_terms
 from voxelmorph_tpu_torch.models.atlas import (ConditionalTemplateCreation,
                                                ProbAtlasSegmentation, TemplateCreation,
                                                stream_step)
 from voxelmorph_tpu_torch.models.hyper import HyperVxmDense
-from voxelmorph_tpu_torch.models.modelio import load_model, save_model
+from voxelmorph_tpu_torch.models.modelio import load_model, read_checkpoint, save_model
+from voxelmorph_tpu_torch.models.synthmorph import (LabelsToImageConfig, SynthMorphDense,
+                                                    labels_to_image, labels_to_image_draws,
+                                                    labels_to_image_from_draws)
 from voxelmorph_tpu_torch.models.unet import ConvBlock
 from voxelmorph_tpu_torch.models.vxm import (InstanceDense, Transform, VxmDense,
                                              VxmDenseSemiSupervisedPointCloud,
@@ -219,7 +260,7 @@ from voxelmorph_tpu_torch.ops import conv3, interp
 from voxelmorph_tpu_torch.ops import warp as warp_ops
 from voxelmorph_tpu_torch.ops import warp_bounded as warp_bounded_ops
 from voxelmorph_tpu_torch.ops import warp_gather as warp_gather_ops
-from voxelmorph_tpu_torch.ops.interp import ndgrid, resize
+from voxelmorph_tpu_torch.ops.interp import interpn_label_onehot, ndgrid, resize
 from voxelmorph_tpu_torch.ops.warp_bounded import (warp_bounded, warp_bounded_bwd,
                                                    warp_bounded_bwd_plain, windowed_transform)
 from voxelmorph_tpu_torch.ops.warp_gather import (launch_gather_bwd, launch_gather_fwd,
@@ -227,7 +268,8 @@ from voxelmorph_tpu_torch.ops.warp_gather import (launch_gather_bwd, launch_gath
 from voxelmorph_tpu_torch.py.utils import dice, load_volfile
 from voxelmorph_tpu_torch.registration import (build_register_fn, enable_fast_warp,
                                                resolve_registration_model)
-from voxelmorph_tpu_torch.training import LossTerm, Trainer
+from voxelmorph_tpu_torch.training import (LossTerm, Trainer, device_cached_label_generator,
+                                           make_loss_fn)
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "artifacts_r4" / "probs_ncc_0050.npz"
@@ -1082,28 +1124,30 @@ def conv_bound(ci, co, vox, dtype, f32_rate=F32_CONV_FLOPS_PER_S):
         t_bytes, t_ops
 
 
-def check_conv3(seed):
-    """The conv kernel against its plain version at the full-width U-Net's
-    conv shapes: the forward in both rounding orders, the forward with the
-    activation off and a non-zero bias (``do_res`` blocks), and the
-    input-gradient orientation (taps flipped, ci and co swapped, no bias or
-    activation),
-    within conv3.kernel_tolerance and bit-equal across two launches; times of
-    the rounding order the main path uses; cuDNN's float32 in full float32,
-    as the kernel computes. Returns the rows and the totals by (dtype,
-    orientation) over the convs a register call (forward) and a train step
-    (input gradient: all but the first) run."""
+def check_conv3(seed, convs=UNET_CONVS, orientations=("fwd", "fwd_act_off", "dx"),
+                label="conv3", dtypes=(torch.bfloat16, torch.float32)):
+    """The conv kernel against its plain version at a U-Net's (D, H, W, ci,
+    co) ``convs``, in forward order (default: the full-width VxmDense's):
+    the forward in both rounding orders, the forward with the activation off
+    and a non-zero bias (``do_res`` blocks), and the input-gradient
+    orientation (taps flipped, ci and co swapped, no bias or activation),
+    those of ``orientations``, in ``dtypes``, within conv3.kernel_tolerance
+    and bit-equal across two launches; times of the rounding order the main
+    path uses beside the bound and cuDNN's, cuDNN's float32 in full
+    float32, as the kernel computes. Returns the rows and the totals by
+    (dtype, orientation) over the convs a register call (forward) and a
+    train step (input gradient: all but the first) run."""
     with full_float32():
-        return _check_conv3(seed)
+        return _check_conv3(seed, convs, orientations, label, dtypes)
 
 
-def _check_conv3(seed):
+def _check_conv3(seed, convs, orientations, label, dtypes):
     rows, totals = [], {}
     gen = torch.Generator(device="cuda").manual_seed(seed)  # data made on the card
     cl = torch.channels_last_3d  # the layout the U-Net keeps in conv-kernel mode
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         elem = 2 if dtype == torch.bfloat16 else 4
-        for index, (D, H, W, ci, co) in enumerate(UNET_CONVS):
+        for index, (D, H, W, ci, co) in enumerate(convs):
             vox = D * H * W
             x = torch.randn((1, ci, D, H, W), generator=gen, device="cuda").to(dtype).contiguous(
                 memory_format=cl)
@@ -1131,6 +1175,8 @@ def _check_conv3(seed):
             }
             for orientation, (inp, k, b, slope, orders, (c_in, c_out), launch) in \
                     cases.items():
+                if orientation not in orientations:
+                    continue
                 err = ratio = 0.0
                 equal_share = 1.0
                 repeatable = True
@@ -1190,47 +1236,10 @@ def _check_conv3(seed):
         f32_note = (f"; at the float32 CUDA-core rate the bound was "
                     f"{t['cuda_core_bound_ms']:.4f} ms" if dtype == "float32" else "")
         t.pop("cuda_core_bound_ms")
-        log(f"conv3 {dtype} {orientation}, {t['convs']} convs: kernel {t['ms']:.4f} ms, bound "
+        log(f"{label} {dtype} {orientation}, {t['convs']} convs: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}{f32_note}), plain {t['plain_ms']:.4f} "
             f"ms, cuDNN {t['library_ms']:.4f} ms")
     return rows, totals
-
-
-def check_conv3_shapes(label, shapes, seed):
-    """The float32 conv kernel against its plain version at (D, H, W, ci,
-    co) ``shapes`` other than the U-Net's: the forward as a ConvBlock calls
-    it and the input gradient (co -> ci), each within
-    conv3.kernel_tolerance, on data made on the card."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    cl = torch.channels_last_3d
-    with full_float32():
-        for D, H, W, ci, co in shapes:
-            x = torch.randn((1, ci, D, H, W), generator=gen, device="cuda").contiguous(
-                memory_format=cl)
-            g = torch.randn((1, co, D, H, W), generator=gen, device="cuda").contiguous(
-                memory_format=cl)
-            kernel = torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda") * \
-                (2.0 / (27 * ci)) ** 0.5
-            bias = 0.1 * torch.randn(co, generator=gen, device="cuda")
-            zero = torch.zeros(ci, device="cuda")
-            order = not conv3.jax_kernel_takes(ci, co, D, H, W, 4, 4)
-            cases = {
-                f"fwd {ci}->{co}": (
-                    conv3.conv3_same_cf(x, kernel, bias, act_slope=0.2, round_conv_first=order),
-                    conv3.conv3_same_cf_plain(x, kernel, bias, 0.2, None, order), bias, order),
-                f"dx {co}->{ci}": (
-                    conv3.conv3_input_grad(g, kernel),
-                    conv3.conv3_same_cf_plain(g, kernel.flip(0, 1, 2).transpose(3, 4), zero,
-                                              None, None, False), zero, False)}
-            for name, (y, plain, b, o) in cases.items():
-                diff = (y - plain).abs()
-                ratio = (diff / conv3.kernel_tolerance(plain, b, o)).max().item()
-                log(f"{label}, conv3 {name} at {(D, H, W)}: max abs err {diff.max().item():.3e}, "
-                    f"{ratio:.3f} of the tolerance")
-                if not ratio <= 1.0:
-                    raise AssertionError(f"{label}: conv3 {name} differs from its plain version "
-                                         f"by {ratio:.3f} of its tolerance")
-            del x, g, cases
 
 
 def default_recipe(inshape, flow_std=None):
@@ -2805,7 +2814,7 @@ ATLAS_DVOL = "atlas: the step's warp dvol"
 # coordinate crosses an integer, so single voxels move far on any change of
 # rounding, and its max-abs difference is no measure. Measured on an H100:
 # 1.95e-3 card vs CPU (2.8e-2 of its max); on the CPU alone, the scan scaled
-# by 1 + 1e-7 noise moves it by 0.10 (--atlas-conditioning). The limit is
+# by 1 + 1e-7 noise moves it by 0.10 (--conditioning). The limit is
 # ten times the first and a fifth of the second.
 ATLAS_GRAD_GPU_VS_CPU_L2 = 2e-2
 # the conditional template of scripts/train_cond_template.py: a 4-value
@@ -3206,8 +3215,8 @@ def prob_atlas_check(smi):
         TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
     del runs
     # the stat ConvBlocks' four shapes against the kernel's plain version
-    check_conv3_shapes("the stat ConvBlocks", [(*INSHAPE, PROB_CLASSES + 1, 16),
-                                               (*INSHAPE, 16, PROB_CLASSES)], SEED + 15)
+    check_conv3(SEED + 15, [(*INSHAPE, PROB_CLASSES + 1, 16), (*INSHAPE, 16, PROB_CLASSES)],
+                ("fwd", "dx"), "9 conv3 at the stat ConvBlocks,", (torch.float32,))
 
     # the stat ConvBlocks (ci = PROB_CLASSES + 1) through the conv kernel
     # against cuDNN, on the same input, float32
@@ -3672,11 +3681,617 @@ def hyper_clis(smi):
                 cli_s=dict(register=register_s, test=test_s, sweep=sweep_s))
 
 
+SYNTH_CHECKPOINT = ROOT / "artifacts_r5" / "synth_w25_00010.npz"
+# the checkpoint's own shape, and its recipe's bs1 step
+SYNTH_HALF = (80, 96, 112)
+# full resolution's output labels: the first 30 of the checkpoint's 46
+SYNTH_OUT_LABELS = 30
+SYNTH_STEPS = 10
+SYNTH_IMAGE_LOSS_WEIGHT = 0.25
+# the synthesis on the card against the CPU on the same draws, each output
+# (image, one-hot, warp, inverse) relative to its largest magnitude: the
+# same plain gathers summed in another order, through 5 squarings and the
+# exp and pow of the contrast (the CPU tests read 2.0e-7 against JAX)
+SYNTH_GPU_VS_CPU_RTOL = 1e-4
+# the fused one-hot warp against the packed one ((1 + L)-channel interpn):
+# the same corner order and products, so equal up to float addition of
+# zeros, which changes nothing
+SYNTH_FUSED_VS_PACKED_RTOL = 1e-6
+# a one-hot channel sum against the warped indicator of the output labels,
+# in absolute units (a sum is at most 1)
+SYNTH_CHANNEL_SUM_TOL = 1e-5
+# one float32 step of the checkpoint's recipe, card against CPU, each
+# gradient tensor relative to its largest entry. The last convs' weight
+# gradients are small sums of terms that cancel: on the GPU machine's CPU
+# alone the synthesis noise scaled by 1 + 1e-7 noise moves them by up to
+# 6.9e-4 and 1.76e-3 (two draws of that noise), on the card by 3.2e-4 and
+# 4.6e-4; card against CPU they read 2.66e-3 (every tensor outside the
+# last two convs and the flow head under 1e-3; an NVIDIA H100 80GB HBM3
+# at 700 W, --conditioning). A zero gradient differs by 1.
+SYNTH_GRAD_GPU_VS_CPU_RTOL = 5e-3
+# the halo under which the dispatch check runs (VXM_WINDOW_HALO): every
+# warp of the recipe (flows under 2.4 voxels) takes a bounded kernel, whose
+# backward adds no atomics, so the dispatch and the single steps are
+# bit-equal; at the default halo 1 the last squarings take the gather, whose
+# backward adds the field's gradient with atomics in any order (two runs of
+# the same 4 single steps differ by 4.7e-6 and 7.4e-6 of a tensor's largest
+# entry; an NVIDIA H100 80GB HBM3 at 700 W, --conditioning)
+SYNTH_DISPATCH_HALO = 4
+
+
+# conv launches of a SynthMorph train step in conv-kernel mode: its U-Net's
+# 10 forward convs, their recomputation in the backward (the per-block
+# remat), and the input gradients of all but the first
+TRAIN_STEP_SYNTH_CONVS = 29
+
+
+def synth_labels():
+    """The committed SynthMorph checkpoint's synthesis config: its 46 input
+    labels and parameters."""
+    return read_checkpoint(str(SYNTH_CHECKPOINT))[1]["cfg"]
+
+
+def synth_label_maps(spatial, n, label_values, device):
+    """``n`` label maps ``(*spatial,)`` int32 of the checkpoint's label values:
+    Voronoi partitions (voronoi_labels) of the head masks of smooth_pair's
+    two images and their flips, into len(label_values) - 1 regions, the
+    background the first value (0)."""
+    moving, fixed = smooth_pair(spatial, device)
+    images = [moving[0], fixed[0], moving[0].flip(0), fixed[0].flip(1)]
+    values = torch.as_tensor(np.asarray(label_values, np.int64), device=device)
+    return [values[voronoi_labels(images[i % 4], len(label_values) - 1,
+                                  SEED + 20 + i).long()].to(torch.int32) for i in range(n)]
+
+
+def draws_on(draws, device):
+    """Synthesis draws (tensors, lists and tuples of them, dicts) on ``device``."""
+    if isinstance(draws, torch.Tensor):
+        return draws.to(device)
+    if isinstance(draws, dict):
+        return {k: draws_on(v, device) for k, v in draws.items()}
+    if isinstance(draws, (list, tuple)):
+        return type(draws)(draws_on(v, device) for v in draws)
+    return draws
+
+
+def synth_config(spatial, nb_out, base=None):
+    """The checkpoint's synthesis at ``spatial`` with its first ``nb_out``
+    labels as outputs."""
+    base = base or synth_labels()
+    kwargs = {k: v for k, v in base.to_dict().items()
+              if k not in ("in_shape", "out_shape", "out_label_list")}
+    return LabelsToImageConfig(in_shape=spatial, out_shape=spatial,
+                               out_label_list=kwargs["in_label_list"][:nb_out], **kwargs)
+
+
+def synth_synthesis(smi, profile):
+    """Phase 12a: labels_to_image at 80x96x112 (46 output labels) and at
+    INSHAPE (30): the card against the CPU on the same draws at 80x96x112;
+    the one-hot's channel sums against the warped indicator of the output
+    labels; the fused one-hot warp against the packed one, and the time of
+    each; ms per synthesized pair and its peak memory (with ``profile``,
+    one image's device time by kernel at INSHAPE)."""
+    base = synth_labels()
+    out = {}
+    for spatial, nb_out in ((SYNTH_HALF, base.nb_in_labels), (INSHAPE, SYNTH_OUT_LABELS)):
+        cfg = synth_config(spatial, nb_out, base)
+        maps = [m[None, ..., None] for m in synth_label_maps(spatial, 2, base.in_label_list,
+                                                            "cuda")]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+        def pair():
+            return [labels_to_image(gen, m, cfg, return_warp=True) for m in maps]
+
+        torch.cuda.reset_peak_memory_stats()
+        pair_ms = wall_ms(pair, reps=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        image, one_hot, warp, inv_warp = pair()[0]
+        if profile and spatial == INSHAPE:
+            profile_device(f"labels_to_image, one image at {spatial}, {nb_out} labels",
+                           lambda: labels_to_image(gen, maps[0], cfg)[0].sum().item(), rows=25)
+        row = dict(labels_in=cfg.nb_in_labels, labels_out=nb_out, pair_ms=pair_ms,
+                   peak_gib=peak, max_warp=warp.abs().max().item())
+        log(f"12a {spatial}, {cfg.nb_in_labels} labels in, {nb_out} out: {pair_ms:.2f} ms per "
+            f"synthesized pair (two labels_to_image calls with return_warp, draws included), "
+            f"peak memory allocated {peak:.3f} GiB; max|warp| {row['max_warp']:.3f} voxels; "
+            f"image in [{image.min().item():.3g}, {image.max().item():.3g}]; {smi}")
+        if not (torch.isfinite(image).all() and 0 <= image.min() and image.max() <= 1
+                and tuple(one_hot.shape) == (1, *spatial, nb_out)):
+            raise AssertionError(f"12a: a bad synthesized image or one-hot at {spatial}")
+
+        # the channel sums: the warped indicator of the output labels
+        out_lut = torch.as_tensor(cfg.out_lut, device="cuda")
+        out_idx = out_lut[maps[0][0, ..., 0].long().clamp(0, out_lut.numel() - 1)]
+        loc = ndgrid(spatial, device="cuda") + warp[0]
+        expected = interp.interpn((out_idx >= 0).float(), loc)
+        sums = one_hot[0].sum(-1)
+        sum_err = (sums - expected).abs().max().item()
+        row["channel_sum_err"] = sum_err
+        log(f"12a {spatial}: one-hot channel sums in [{sums.min().item():.6f}, "
+            f"{sums.max().item():.6f}], against the warped indicator of the output labels max "
+            f"abs err {sum_err:.3e} (tol {SYNTH_CHANNEL_SUM_TOL})")
+        if not sum_err <= SYNTH_CHANNEL_SUM_TOL:
+            raise AssertionError(f"12a: the one-hot's channel sums are off at {spatial}")
+
+        # fused against packed, on a random image, the map's output indices
+        # and the synthesis warp's locations
+        img = torch.rand(spatial, generator=gen, device="cuda")
+
+        def fused():
+            return interpn_label_onehot(img, out_idx, loc, nb_out)
+
+        def packed():
+            one = F.one_hot(out_idx.clamp(min=0).long(), nb_out).float() * (
+                out_idx >= 0)[..., None]
+            warped = interp.interpn(torch.cat([img[..., None], one], -1), loc)
+            return warped[..., 0], warped[..., 1:]
+
+        f_img, f_oh = fused()
+        p_img, p_oh = packed()
+        rel = max(rel_max(f_img, p_img), rel_max(f_oh, p_oh))
+        equal = torch.equal(f_img, p_img) and torch.equal(f_oh, p_oh)
+        del f_img, f_oh, p_img, p_oh
+        row.update(fused_ms=wall_ms(fused, reps=5), packed_ms=wall_ms(packed, reps=5),
+                   fused_vs_packed=rel)
+        log(f"12a {spatial}: the fused one-hot warp against the packed interpn of "
+            f"{nb_out + 1} channels: bit-equal {equal}, largest relative difference {rel:.3e} "
+            f"(tol {SYNTH_FUSED_VS_PACKED_RTOL}); fused {row['fused_ms']:.3f} ms, packed "
+            f"{row['packed_ms']:.3f} ms (host clock, synchronised, mean of 5)")
+        if not rel <= SYNTH_FUSED_VS_PACKED_RTOL:
+            raise AssertionError(f"12a: the fused one-hot warp differs from the packed one")
+
+        if spatial == SYNTH_HALF:
+            # the card against the CPU on the same draws
+            draws = labels_to_image_draws(torch.Generator().manual_seed(SEED + 1), cfg, 1)
+            t0 = time.perf_counter()
+            cpu = labels_to_image_from_draws(maps[0].cpu(), cfg, draws, return_warp=True)
+            cpu_s = time.perf_counter() - t0
+            card = labels_to_image_from_draws(maps[0], cfg, draws_on(draws, "cuda"),
+                                              return_warp=True)
+            errs = [rel_max(a.cpu(), b) for a, b in zip(card, cpu)]
+            row["gpu_vs_cpu"] = errs
+            log(f"12a {spatial}: card vs CPU on the same draws (CPU {cpu_s:.2f} s), largest "
+                f"difference relative to the largest magnitude: image {errs[0]:.3e}, one-hot "
+                f"{errs[1]:.3e}, warp {errs[2]:.3e}, inverse {errs[3]:.3e} (tol "
+                f"{SYNTH_GPU_VS_CPU_RTOL})")
+            if not max(errs) <= SYNTH_GPU_VS_CPU_RTOL:
+                raise AssertionError("12a: the synthesis on the card disagrees with the CPU")
+        out[spatial] = row
+        del maps, image, one_hot, warp, inv_warp, loc, expected, img
+    return out
+
+
+def conv_blocks(model):
+    """The U-Net's conv blocks of a VxmDense."""
+    return sum(isinstance(m, ConvBlock) for m in model.unet.modules())
+
+
+def conv_block_shapes(model, fn):
+    """The (D, H, W, ci, co) of each 3-D ConvBlock call of ``model`` while
+    ``fn()`` runs, in call order."""
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: shapes.append((*args[0].shape[2:], args[0].shape[1],
+                                       m.conv.out_channels)))
+        for m in model.modules() if isinstance(m, ConvBlock)]
+    try:
+        fn()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return shapes
+
+
+def synth_serving(smi):
+    """Phase 12b: the committed checkpoint's VxmDense (bfloat16) re-targeted
+    to INSHAPE registers smooth_pair at bs1 in cuDNN and conv-kernel mode;
+    the conv kernel at the U-Net's conv shapes of that call (64 wide, the
+    decoder's 128 -> 64), forward and input gradient, bfloat16 and float32,
+    against its plain version and timed beside cuDNN (check_conv3);
+    bfloat16 against float32 (TF32 off) on the card, and the card against
+    the CPU in float32 at the checkpoint's own 80x96x112."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    model = resolve_registration_model(load_model(str(SYNTH_CHECKPOINT), device="cuda"),
+                                       inshape=INSHAPE)
+    blocks = conv_blocks(model)
+    log(f"12b model: VxmDense {model.inshape} dtype {model.dtype}, "
+        f"{sum(p.numel() for p in model.parameters())} params, {blocks} conv blocks")
+    results = {}
+    for enabled in (False, True):
+        mode = "conv kernel" if enabled else "cuDNN"
+        with conv_kernel_mode(enabled):
+            register = build_register_fn(model)
+            shapes = conv_block_shapes(model, lambda: register(moving, fixed))
+            torch.cuda.synchronize()
+            reset_launches()
+            moved, warp = register(moving, fixed)
+            torch.cuda.synchronize()
+            counts = read_launches()
+            check_warp_work(counts, f"12b register call, {mode}", backward=False)
+            ms = wall_ms(lambda: register(moving, fixed), reps=5)
+        log(f"12b {mode}, bfloat16, bs1, {INSHAPE}: {ms:.2f} ms per pair; max|warp| "
+            f"{warp.abs().max().item():.3f} voxels; launches {counts}; {smi}")
+        if enabled and (counts["conv"] != blocks or counts["layout_copies"]):
+            raise AssertionError(f"12b: {counts['conv']} conv-kernel launches for {blocks} "
+                                 f"blocks, {counts['layout_copies']} layout copies")
+        if not (torch.isfinite(moved).all() and torch.isfinite(warp).all()):
+            raise AssertionError(f"12b: non-finite register output ({mode})")
+        results[enabled] = dict(ms=ms, launches=counts, out=(moved, warp))
+    log("12b the conv kernel's bfloat16 call against cuDNN's:")
+    bf16_vs_f32(*results[True]["out"], *results[False]["out"])
+    log(f"12b the U-Net's conv shapes (D, H, W, ci, co): {shapes}")
+    conv_rows, conv_totals = check_conv3(SEED + 5, shapes, ("fwd", "dx"),
+                                         label="12b conv3 at SynthMorph's U-Net shapes,")
+    f32 = resolve_registration_model(load_model(str(SYNTH_CHECKPOINT), device="cuda",
+                                                dtype=torch.float32), inshape=INSHAPE)
+    moved_f32, warp_f32 = build_register_fn(f32)(moving, fixed)
+    log("12b bfloat16 (cuDNN) against float32:")
+    bf16_vs_f32(*results[False]["out"], moved_f32, warp_f32)
+    del model, f32, moved_f32, warp_f32
+
+    mv_h, fx_h = smooth_pair(SYNTH_HALF, "cpu")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        net = resolve_registration_model(load_model(str(SYNTH_CHECKPOINT), device=device,
+                                                    dtype=torch.float32), inshape=SYNTH_HALF)
+        runs[device] = [t.cpu() for t in build_register_fn(net)(mv_h.to(device),
+                                                                fx_h.to(device))]
+        log(f"12b float32 at {SYNTH_HALF} on {device}: {time.perf_counter() - t0:.2f} s")
+    flow_err = (runs["cuda"][1] - runs["cpu"][1]).abs().max().item()
+    image_err = (runs["cuda"][0] - runs["cpu"][0]).abs().max().item()
+    log(f"12b GPU vs CPU float32 at {SYNTH_HALF}: pos_flow max abs err {flow_err:.3e} (tol "
+        f"{FLOW_TOL}; max|pos_flow| {runs['cpu'][1].abs().max().item():.3f}), y_source max abs "
+        f"err {image_err:.3e} (tol {IMAGE_TOL})")
+    if not (flow_err <= FLOW_TOL and image_err <= IMAGE_TOL):
+        raise AssertionError("12b: the float32 GPU run disagrees with the CPU run")
+    return dict(launches=results[False]["launches"], conv_launches=results[True]["launches"],
+                ms_per_pair=results[False]["ms"], conv_ms_per_pair=results[True]["ms"],
+                gpu_vs_cpu=[flow_err, image_err], conv_shapes=shapes, conv_rows=conv_rows,
+                conv_totals={f"{dtype} {orientation}": t
+                             for (dtype, orientation), t in conv_totals.items()})
+
+
+def synth_recipe_terms():
+    """The committed checkpoint's recipe: Dice + 1, Grad-l2, and NCC at
+    --image-loss-weight 0.25."""
+    return synthmorph_terms(1.0, SYNTH_IMAGE_LOSS_WEIGHT)
+
+
+def synth_step_grads(device, draws, batch, conv, dtype=torch.float32, make_model=None):
+    """One step's loss and gradients of the checkpoint's recipe on
+    ``draws`` (float32 with TF32 off unless ``dtype``), on ``device``, of
+    the checkpoint's model or of ``make_model(device)``; the CPU takes the
+    bounded tiers as the card does. Returns (loss, grads, launches)."""
+    model = (make_model(device) if make_model else
+             load_model(str(SYNTH_CHECKPOINT), device=device, dtype=dtype)).train()
+    on_device = draws_on(draws, device)
+    loss_fn = make_loss_fn(lambda *x, generator=None: model(*x, draws=on_device),
+                           synth_recipe_terms())
+    inputs = tuple(t.to(device) for t in batch)
+    counts = None
+    with (window_halo("1") if device == "cpu" else conv_kernel_mode(conv)):
+        if device == "cuda":
+            reset_launches()
+        loss, _ = loss_fn(inputs, (torch.zeros(1, device=device),))
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = read_launches()
+    return loss.item(), {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}, counts
+
+
+def synth_conditioning(draws, batch, runs):
+    """How far the synthesis noise scaled by 1 + 1e-7 noise moves 12c's
+    float32 gradients on the CPU and on the card: the largest relative
+    difference of each side against its own run in ``runs``."""
+    noisy = draws_on(draws, "cpu")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for side in ("src", "trg"):
+        d = dict(noisy[side][0])
+        d["noise"] = d["noise"] * (1 + 1e-7 * torch.randn(d["noise"].shape, generator=gen))
+        noisy[side] = [d]
+    for name, device in (("CPU", "cpu"), ("cuDNN", "cuda")):
+        _, grads, _ = synth_step_grads(device, noisy, batch, False)
+        ref = runs[name][1]
+        worst = max(((grads[n] - g).abs().max() / g.abs().max()).item() for n, g in ref.items())
+        log(f"12c conditioning: the synthesis noise scaled by 1 + 1e-7 noise moves the "
+            f"{name} run's gradients by up to {worst:.3e} of a tensor's largest magnitude")
+
+
+def synth_training(smi, profile, conditioning):
+    """Phase 12c: the committed checkpoint's recipe (80x96x112, 46 labels,
+    bfloat16, shared_contrast 0.5, Dice + Grad + NCC at 0.25, Adam 1e-4,
+    bs1) on Voronoi label maps: one float32 step's loss and gradients with
+    the conv kernel against cuDNN and on the card against the CPU, on the
+    same draws; SYNTH_STEPS bfloat16 steps in cuDNN mode and three with the
+    conv kernel (s per step, peak memory, each tiered warp one branch);
+    fit_cached_labels' 4-step dispatch against 4 single steps of the cached
+    generator, bit for bit (SYNTH_DISPATCH_HALO); a step in each conv mode
+    under set_sync_debug_mode("error"). With ``profile``, a bfloat16 step's
+    device time by kernel; with ``conditioning``, the readings behind
+    SYNTH_GRAD_GPU_VS_CPU_RTOL and SYNTH_DISPATCH_HALO."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = synth_labels()
+    maps = synth_label_maps(SYNTH_HALF, 4, base.in_label_list, "cuda")
+    batch = (maps[0][None, ..., None], maps[1][None, ..., None])
+    probe = load_model(str(SYNTH_CHECKPOINT), device="cpu")
+    draws = probe.draw(torch.Generator().manual_seed(SEED + 2), 1, "cpu")
+    runs = {}
+    for name, device, conv in (("cuDNN", "cuda", False), ("conv kernel", "cuda", True),
+                               ("CPU", "cpu", False)):
+        t0 = time.perf_counter()
+        runs[name] = synth_step_grads(device, draws, batch, conv)
+        log(f"12c float32 step at {SYNTH_HALF} ({name}): {time.perf_counter() - t0:.2f} s; "
+            f"launches {runs[name][2]}")
+    for name in ("cuDNN", "conv kernel"):
+        check_warp_work(runs[name][2], f"12c float32 step, {name}")
+    kernel_vs_cudnn = compare_grads(f"12c conv kernel vs cuDNN, float32, {SYNTH_HALF}",
+                                    *runs["conv kernel"][:2], *runs["cuDNN"][:2],
+                                    TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
+    card_vs_cpu_rel = compare_grads(f"12c GPU vs CPU, float32, {SYNTH_HALF}",
+                                    *runs["cuDNN"][:2], *runs["CPU"][:2],
+                                    SYNTH_GRAD_GPU_VS_CPU_RTOL)
+    if conditioning:
+        synth_conditioning(draws, batch, runs)
+    del runs, probe
+
+    zero = torch.zeros(1, device="cuda")
+    pairs = [(maps[i][None, ..., None], maps[(i + 1) % 4][None, ..., None]) for i in range(4)]
+    steps = {}
+    for enabled, n in ((False, SYNTH_STEPS), (True, 3)):
+        mode = "conv kernel" if enabled else "cuDNN"
+        with conv_kernel_mode(enabled):
+            trainer = Trainer(load_model(str(SYNTH_CHECKPOINT), device="cuda"),
+                              synth_recipe_terms(), lr=1e-4, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            losses_, step_s, counts = [], [], None
+            for i in range(n):
+                reset_launches()
+                t0 = time.perf_counter()
+                losses_.append(trainer.train_step(pairs[i % 4], (zero,))["loss"].item())
+                step_s.append(time.perf_counter() - t0)
+                counts = read_launches()
+                check_warp_work(counts, f"12c bfloat16 step {i}, {mode}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            # no host sync inside a step, after the warm-up above
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics = trainer.train_step(pairs[0], (zero,))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            sync_free_loss = metrics["loss"].item()
+            if profile and not enabled:
+                profile_device(f"SynthMorph recipe step at {SYNTH_HALF} (cuDNN, bfloat16)",
+                               lambda: trainer.train_step(pairs[0], (zero,))["loss"].item(),
+                               rows=30)
+        median_s = float(np.median(step_s[1:]))
+        log(f"12c bfloat16 steps, {mode}, bs1, {SYNTH_HALF}: losses " + ", ".join(
+            f"{x:.6f}" for x in losses_) + "; " + ", ".join(f"{x:.4f}" for x in step_s)
+            + f" s/step (median after the first {median_s:.4f}); peak memory allocated "
+            f"{peak:.3f} GiB; launches of the last step {counts}; a step under "
+            f"set_sync_debug_mode('error') ran with no host sync (loss {sync_free_loss:.6f}); "
+            f"{smi}")
+        if not all(np.isfinite([*losses_, sync_free_loss])):
+            raise AssertionError(f"12c: non-finite losses ({mode}): {losses_}")
+        if enabled and not counts["conv"]:
+            raise AssertionError("12c: no conv-kernel launch in a conv-kernel step")
+        steps[enabled] = dict(step_s=median_s, peak_gib=peak, launches=counts)
+        del trainer
+
+    # fit_cached_labels' dispatch of 4 steps against 4 single steps of the
+    # cached generator on the same picks, flips and synthesis draws, every
+    # warp bounded (SYNTH_DISPATCH_HALO)
+    host_maps = [m.cpu().numpy() for m in maps]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    params, fetches = {}, {}
+    try:
+        with window_halo(str(SYNTH_DISPATCH_HALO)):
+            for name in ("single", "dispatch"):
+                trainer = Trainer(load_model(str(SYNTH_CHECKPOINT), device="cuda"),
+                                  synth_recipe_terms(), lr=1e-4, device="cuda")
+                reset_launches()
+                t0 = time.perf_counter()
+                if name == "dispatch":
+                    trainer.fit_cached_labels(host_maps, epochs=1,
+                                              steps_per_epoch=DISPATCH_STEPS,
+                                              steps_per_dispatch=DISPATCH_STEPS, start_step=1,
+                                              log_fn=lambda _: None)
+                else:
+                    stream = device_cached_label_generator(host_maps, start_step=1,
+                                                           device="cuda")
+                    for _ in range(DISPATCH_STEPS):
+                        trainer.train_step(*next(stream))
+                torch.cuda.synchronize()
+                dispatch_s = time.perf_counter() - t0
+                counts = read_launches()
+                fetches[name] = trainer.metric_fetches
+                params[name] = {n: p.detach().clone()
+                                for n, p in trainer.model.named_parameters()}
+                del trainer
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    if conditioning:
+        # two runs of the same single steps at the default halo
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            again = []
+            for _ in range(2):
+                trainer = Trainer(load_model(str(SYNTH_CHECKPOINT), device="cuda"),
+                                  synth_recipe_terms(), lr=1e-4, device="cuda")
+                stream = device_cached_label_generator(host_maps, start_step=1, device="cuda")
+                for _ in range(DISPATCH_STEPS):
+                    trainer.train_step(*next(stream))
+                again.append({n: p.detach().clone() for n, p in trainer.model.named_parameters()})
+                del trainer
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        log(f"12c conditioning: two runs of the same {DISPATCH_STEPS} single steps at the "
+            f"default halo differ by up to " + "{:.3e}".format(max(
+                ((again[0][n] - p).abs().max() / p.abs().max()).item()
+                for n, p in again[1].items())) + " of a tensor's largest magnitude")
+    equal = all(torch.equal(params["single"][n], p) for n, p in params["dispatch"].items())
+    worst = max(((params["single"][n] - p).abs().max() / p.abs().max()).item()
+                for n, p in params["dispatch"].items())
+    log(f"12c fit_cached_labels, {DISPATCH_STEPS} steps in one dispatch against single steps, "
+        f"VXM_WINDOW_HALO={SYNTH_DISPATCH_HALO}: "
+        f"params bit-equal {equal} (cudnn.deterministic), largest difference {worst:.3e} of a "
+        f"tensor's largest magnitude (tol {DISPATCH_RTOL}); metric fetches {fetches}; "
+        f"{dispatch_s:.2f} s for the dispatch; its launches {counts}")
+    if not equal or fetches["dispatch"] != 1:
+        raise AssertionError("12c: the dispatch differs from single steps")
+    check_warp_work(counts, "12c the dispatch")
+    return dict(step_s=steps[False]["step_s"], peak_gib=steps[False]["peak_gib"],
+                conv_step_s=steps[True]["step_s"], conv_peak_gib=steps[True]["peak_gib"],
+                launches=steps[False]["launches"], conv_launches=steps[True]["launches"],
+                dispatch_bit_equal=equal, kernel_vs_cudnn_rel=kernel_vs_cudnn,
+                gpu_vs_cpu_rel=card_vs_cpu_rel)
+
+
+def synth_fullres(smi, profile):
+    """Phase 12d: the checkpoint's architecture from seed 0 at INSHAPE (46
+    labels in, 30 out, bfloat16, shared_contrast 0.5, its recipe): one
+    float32 step's loss and gradients with the conv kernel against cuDNN
+    (TF32 off) on the same draws, then three bfloat16 steps in each conv
+    mode: s per step, peak memory, each tiered warp one branch."""
+    base = synth_labels()
+    cfg = synth_config(INSHAPE, SYNTH_OUT_LABELS, base)
+    maps = synth_label_maps(INSHAPE, 2, base.in_label_list, "cuda")
+    pair = (maps[0][None, ..., None], maps[1][None, ..., None])
+    zero = torch.zeros(1, device="cuda")
+
+    def make_model(device, dtype=torch.bfloat16):
+        return SynthMorphDense(cfg, nb_unet_features=[[64] * 4, [64] * 6], int_steps=5,
+                               int_resolution=2, svf_resolution=2, dtype=dtype,
+                               shared_contrast=0.5,
+                               generator=torch.Generator().manual_seed(SEED)).to(device)
+
+    draws = make_model("cpu").draw(torch.Generator(device="cuda").manual_seed(SEED + 4), 1,
+                                   "cuda")
+    runs = {}
+    with full_float32():
+        for enabled in (False, True):
+            t0 = time.perf_counter()
+            runs[enabled] = synth_step_grads(
+                "cuda", draws, pair, enabled,
+                make_model=lambda device: make_model(device, torch.float32))
+            log(f"12d float32 step at {INSHAPE} ({'conv kernel' if enabled else 'cuDNN'}): "
+                f"{time.perf_counter() - t0:.2f} s; launches {runs[enabled][2]}")
+            check_warp_work(runs[enabled][2], f"12d float32 step, conv kernel {enabled}")
+    if runs[True][2]["conv"] != TRAIN_STEP_SYNTH_CONVS or runs[False][2]["conv"]:
+        raise AssertionError(f"12d: conv launches {runs[True][2]['conv']} and "
+                             f"{runs[False][2]['conv']}, expected {TRAIN_STEP_SYNTH_CONVS} and 0")
+    kernel_vs_cudnn = compare_grads(f"12d conv kernel vs cuDNN, float32, {INSHAPE}",
+                                    *runs[True][:2], *runs[False][:2],
+                                    TRAIN_CONV_KERNEL_VS_CUDNN_RTOL)
+    del runs, draws
+    out = {}
+    for enabled in (False, True):
+        mode = "conv kernel" if enabled else "cuDNN"
+        with conv_kernel_mode(enabled):
+            model = make_model("cpu")
+            trainer = Trainer(model, synth_recipe_terms(), lr=1e-4, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            losses_, step_s, counts = [], [], None
+            for i in range(3):
+                reset_launches()
+                t0 = time.perf_counter()
+                losses_.append(trainer.train_step(pair, (zero,))["loss"].item())
+                step_s.append(time.perf_counter() - t0)
+                counts = read_launches()
+                check_warp_work(counts, f"12d step {i}, {mode}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if profile:
+                profile_device(f"SynthMorph full-resolution train step ({mode}, bfloat16)",
+                               lambda: trainer.train_step(pair, (zero,))["loss"].item(), rows=30)
+        median_s = float(np.median(step_s[1:]))
+        log(f"12d bfloat16 steps, {mode}, bs1, {INSHAPE}, {cfg.nb_in_labels} labels in, "
+            f"{cfg.nb_out_labels} out: losses " + ", ".join(f"{x:.6f}" for x in losses_) + "; "
+            + ", ".join(f"{x:.4f}" for x in step_s) + f" s/step (median after the first "
+            f"{median_s:.4f}); peak memory allocated {peak:.3f} GiB; launches of the last step "
+            f"{counts}; {smi}")
+        if not all(np.isfinite(losses_)) or (enabled and not counts["conv"]):
+            raise AssertionError(f"12d: bad full-resolution steps ({mode})")
+        out[enabled] = dict(step_s=median_s, peak_gib=peak, launches=counts)
+        del trainer, model
+    out[True]["kernel_vs_cudnn_rel"] = kernel_vs_cudnn
+    return out
+
+
+def synth_clis(smi):
+    """Phase 12e: cli/train_synthmorph --cache-device --steps-per-dispatch 4
+    --init-weights the committed checkpoint on 4 label maps at 80x96x112
+    padded to INSHAPE (--out-shape) for one epoch, then cli/register and
+    cli/test of the checkpoint it wrote on the labelled pair at INSHAPE."""
+    base = synth_labels()
+    maps = synth_label_maps(SYNTH_HALF, 4, base.in_label_list, "cpu")
+    moving, fixed, src_lab, trg_lab = labelled_pair(INSHAPE, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/maps")
+        for i, lab in enumerate(maps):
+            np.save(f"{tmp}/maps/map{i}.npy", lab.numpy())
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = synth_train_cli.main([
+            "--label-dir", f"{tmp}/maps", "--model-dir", f"{tmp}/run", "--cache-device",
+            "--steps-per-dispatch", str(DISPATCH_STEPS), "--steps-per-epoch",
+            str(DISPATCH_STEPS), "--epochs", "1", "--init-weights", str(SYNTH_CHECKPOINT),
+            "--dtype", "bfloat16", "--shared-contrast", "0.5", "--image-loss-weight",
+            str(SYNTH_IMAGE_LOSS_WEIGHT), "--out-shape", *map(str, INSHAPE), "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_launches()
+        fetches = trainer.metric_fetches
+        del trainer
+        check_warp_work(counts, "12e cli/train_synthmorph's dispatch")
+        log(f"12e cli/train_synthmorph, {DISPATCH_STEPS} steps in one dispatch, maps at "
+            f"{SYNTH_HALF} padded to {INSHAPE}: {train_s:.2f} s in all (two checkpoints); "
+            f"metric fetches {fetches}; launches {counts}")
+        if fetches != 1:
+            raise AssertionError(f"12e: {fetches} metric fetches for one dispatch")
+
+        for name, vol, lab in (("moving", moving, src_lab), ("fixed", fixed, trg_lab)):
+            np.savez(f"{tmp}/{name}.npz", vol=vol[0, ..., 0].numpy(), seg=lab.numpy())
+        Path(f"{tmp}/pairs.txt").write_text(f"{tmp}/moving.npz {tmp}/fixed.npz\n")
+        written = f"{tmp}/run/00001.npz"
+        t0 = time.perf_counter()
+        register_cli.main(["--moving", f"{tmp}/moving.npz", "--fixed", f"{tmp}/fixed.npz",
+                           "--model", written, "--moved", f"{tmp}/moved.nii",
+                           "--warp", f"{tmp}/warp.nii", "--device", "cuda"])
+        register_s = time.perf_counter() - t0
+        warp = torch.from_numpy(load_volfile(f"{tmp}/warp.nii")).cuda()
+        carried = warp_ops.transform(src_lab.cuda().float(), warp, interp_method="nearest",
+                                     window_halo=None).cpu().numpy()
+        register_dice = float(np.mean(dice(carried, trg_lab.numpy())))
+        log(f"12e cli/register at {INSHAPE}: {register_s:.2f} s; max|warp| "
+            f"{warp.abs().max().item():.3f} voxels; Dice of the labels carried by its warp "
+            f"{register_dice:.4f} (unregistered "
+            f"{np.mean(dice(src_lab.numpy(), trg_lab.numpy())):.4f})")
+        t0 = time.perf_counter()
+        scores = test_cli.main(["--model", written, "--pairs", f"{tmp}/pairs.txt",
+                                "--img-suffix", "", "--seg-prefix", "", "--device", "cuda"])
+        test_s = time.perf_counter() - t0
+    log(f"12e cli/test: Dice {scores[0]:.4f}, {test_s:.2f} s; {smi}")
+    if abs(scores[0] - register_dice) > 1e-4:
+        raise AssertionError(f"12e: cli/test's Dice {scores[0]} differs from cli/register's "
+                             f"{register_dice}")
+    return dict(launches=counts, register_dice=register_dice, test_dice=float(scores[0]),
+                cli_s=dict(train=train_s, register=register_s, test=test_s))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="print profiler breakdowns of a register call and a train "
-                             "step, with and without the conv kernel, and of HyperMorph's")
+                             "step, with and without the conv kernel, of HyperMorph's, and "
+                             "of SynthMorph's synthesis and steps")
     parser.add_argument("--compare-warp-source", nargs="+", default=[], metavar="CU",
                         help="other copies of csrc/warp_bounded.cu to build and time "
                              "beside the package's warp kernels in phases 2 and 2b")
@@ -3684,10 +4299,13 @@ def main(argv=None) -> int:
                         help="other copies of csrc/warp_gather.cu (an earlier commit's) "
                              "to build and time beside the package's gather kernels in "
                              "phase 2e")
-    parser.add_argument("--atlas-conditioning", action="store_true",
-                        help="phase 8 also runs the CPU's template step with the scan "
-                             "scaled by 1 + 1e-7 noise and prints how far that moves the "
-                             "atlas's gradient (the reading behind ATLAS_GRAD_GPU_VS_CPU_L2)")
+    parser.add_argument("--conditioning", action="store_true",
+                        help="also print the readings behind phase 8's and 12c's "
+                             "card-vs-CPU limits: how far 1 + 1e-7 noise on the scan moves "
+                             "the CPU's atlas gradient (ATLAS_GRAD_GPU_VS_CPU_L2), how far "
+                             "it moves 12c's float32 gradients on the synthesis noise "
+                             "(SYNTH_GRAD_GPU_VS_CPU_RTOL), and how far two runs of the same "
+                             "steps at the default halo differ (SYNTH_DISPATCH_HALO)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -3821,7 +4439,7 @@ def main(argv=None) -> int:
     log(f"phase 7: {time.perf_counter() - t:.2f} s")
 
     t = phase("8. template creation at full width")
-    template = train_template(smi, args.atlas_conditioning)
+    template = train_template(smi, args.conditioning)
     log(f"phase 8: {time.perf_counter() - t:.2f} s")
 
     t = phase("8b. conditional template at full width")
@@ -3848,6 +4466,26 @@ def main(argv=None) -> int:
     hyper_cli = hyper_clis(smi)
     log(f"phase 11c: {time.perf_counter() - t:.2f} s")
 
+    t12 = t = phase("12a. SynthMorph's synthesis at 80x96x112 and full width")
+    synth_synth = synth_synthesis(smi, args.profile)
+    log(f"phase 12a: {time.perf_counter() - t:.2f} s")
+
+    t = phase("12b. SynthMorph registration at full width")
+    synth_serve = synth_serving(smi)
+    log(f"phase 12b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("12c. the SynthMorph checkpoint's recipe at 80x96x112")
+    synth_train = synth_training(smi, args.profile, args.conditioning)
+    log(f"phase 12c: {time.perf_counter() - t:.2f} s")
+
+    t = phase("12d. SynthMorph training at full width")
+    synth_full = synth_fullres(smi, args.profile)
+    log(f"phase 12d: {time.perf_counter() - t:.2f} s")
+
+    t = phase("12e. the SynthMorph CLIs")
+    synth_cli = synth_clis(smi)
+    log(f"phase 12e: {time.perf_counter() - t:.2f} s; phase 12: {time.perf_counter() - t12:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -3867,7 +4505,15 @@ def main(argv=None) -> int:
              "train_step_instance": instance["launches"],
              "register_hyper": hyper_serve["launches"],
              "train_step_hyper": hyper_train["launches"],
-             "train_step_hyper_cached_dispatch": hyper_cli["launches"]}
+             "train_step_hyper_cached_dispatch": hyper_cli["launches"],
+             "register_synthmorph": synth_serve["launches"],
+             "train_step_synthmorph": synth_train["launches"],
+             "train_step_synthmorph_conv": synth_train["conv_launches"],
+             # the full-width step in conv-kernel mode
+             "train_step_synthmorph_fullres": synth_full[True]["launches"],
+             # cli/train_synthmorph's whole dispatch of DISPATCH_STEPS steps
+             # (maps padded to INSHAPE)
+             "train_step_synthmorph_cached_dispatch": synth_cli["launches"]}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -3935,7 +4581,10 @@ def main(argv=None) -> int:
         ms=conv_serving["ms"], plain_ms=conv_serving["plain_ms"],
         bound_ms=conv_serving["bound_ms"], bound_by=conv_serving["bound_by"],
         library_ms=conv_serving["library_ms"], register_conv_ms_per_pair=conv_ms,
-        train_step_conv=conv_train, tensor_core_instructions=hmma)]
+        train_step_conv=conv_train, tensor_core_instructions=hmma,
+        # the same sums at SynthMorph's 64-wide U-Net (phase 12b): 10
+        # forward convs, 9 input gradients
+        synthmorph=synth_serve["conv_totals"])]
     log("summary: " + json.dumps(dict(
         template={("conv_kernel" if k is True else "cudnn" if k is False else k): {
             key: val for key, val in v.items() if key != "launches"} for k, v in template.items()},
@@ -3947,6 +4596,15 @@ def main(argv=None) -> int:
             serving={k: v for k, v in hyper_serve.items() if k != "launches"},
             training={k: v for k, v in hyper_train.items() if k != "launches"},
             clis={k: v for k, v in hyper_cli.items() if k != "launches"}),
+        synthmorph=dict(
+            synthesis={"x".join(map(str, k)): v for k, v in synth_synth.items()},
+            serving={k: v for k, v in synth_serve.items()
+                     if "launches" not in k and k != "conv_rows"},
+            training={k: v for k, v in synth_train.items() if "launches" not in k},
+            fullres={("conv_kernel" if k else "cudnn"): {
+                key: val for key, val in v.items() if key != "launches"}
+                for k, v in synth_full.items()},
+            clis={k: v for k, v in synth_cli.items() if k != "launches"}),
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

@@ -90,13 +90,14 @@ ATLAS_CLIS = {
     "train_unsupervised_seg": ["--img-list", "list.txt", "--atlas", "atlas.npz"],
     "test_unsupervised_seg": ["image.npz", "seg.nii.gz", "--model", "m.npz", "--atlas",
                               "atlas.npz", "--mapping", "map.npy"],
+    "train_synthmorph": ["--label-dir", "maps/"],
 }
 
 
 @pytest.mark.parametrize("name", sorted(ATLAS_CLIS))
 def test_atlas_clis_default_to_the_gpu(name):
-    """The CLIs of the atlas and instance models refuse to start without a
-    GPU unless --device cpu is given, before they read any file."""
+    """The CLIs of the atlas, instance and SynthMorph models refuse to start
+    without a GPU unless --device cpu is given, before they read any file."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the GPU default runs")
     import importlib

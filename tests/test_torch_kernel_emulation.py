@@ -190,7 +190,12 @@ CONV_CASES = [pytest.param(*case, id="-".join(map(str, case[:6])) + (
         (1, 24, 40, 3, 5, 40, "ncdhw", ("big", 8, 2, 4), (2, 4)),
         (2, 32, 17, 4, 3, 18, "cl", ("small", 4, 1, 2, 2), (1, 1)),
         (1, 48, 64, 3, 4, 16, "cl", ("big", 4, 2, 2), (2, 8)),
-        (1, 12, 20, 9, 17, 40, "cl", "auto", (4, 8))])]
+        (1, 12, 20, 9, 17, 40, "cl", "auto", (4, 8)),
+        # SynthMorph's 64-wide U-Net, with the tiles tile_plan and
+        # fma_tile_plan give its full-width shapes: the decoder's skip
+        # concat (ci 128) and the first block (ci 2)
+        (1, 128, 64, 5, 6, 9, "cl", ("big", 8, 4, 4), (4, 8)),
+        (1, 2, 64, 6, 5, 11, "cl", ("big", 8, 2, 4), (4, 8))])]
 
 
 def _plan(tile, fma_tile, batch, D, H, W, co, dtype, f32_fma):

@@ -3,10 +3,11 @@
 The port's own copy of the generators of ``voxelmorph_tpu/generators.py``
 (``volgen``, ``scan_to_scan``, ``scan_to_atlas``, ``semisupervised``,
 ``template_creation``, ``conditional_template_creation``,
-``surf_semisupervised``), with the same ``(inputs, outputs)`` tuple
-contracts. Each takes an explicit ``np.random.Generator`` (``rng``; a fresh
-unseeded one by default) instead of a module-level random state, and draws
-from it in the JAX package's order. The first four yield numpy arrays;
+``surf_semisupervised``, ``synthmorph``), with the same ``(inputs,
+outputs)`` tuple contracts. Each takes an explicit ``np.random.Generator``
+(``rng``; a fresh unseeded one by default, and for ``synthmorph`` the
+module's own ``_rng``, as in the JAX package) and draws from it in the JAX
+package's order. The first four yield numpy arrays;
 ``surf_semisupervised`` computes its distance transforms and point clouds
 with torch on its ``device`` (``py.ndimage``) and yields tensors there.
 """
@@ -23,7 +24,10 @@ from .py import utils as py_utils
 from .py.utils import load_volfile
 
 __all__ = ["volgen", "scan_to_scan", "scan_to_atlas", "semisupervised", "template_creation",
-           "conditional_template_creation", "surf_semisupervised"]
+           "conditional_template_creation", "surf_semisupervised", "synthmorph"]
+
+# synthmorph's stream when no rng is given, the JAX module's ``_rng``
+_rng = np.random.default_rng()
 
 
 def _expand_names(vol_names):
@@ -337,3 +341,26 @@ def surf_semisupervised(vol_names, atlas_vol, atlas_seg, nb_surface_pts, labels=
             outputs = [fixed, moving, flow, zero_pt_values]
         del subj_sdts
         yield inputs, outputs
+
+
+def synthmorph(label_maps, batch_size=1, same_subj=False, flip=True, rng=None):
+    """SynthMorph's label-map pairs: yields ``[src, trg]``, each
+    ``(batch_size, *S, 1)`` integer maps picked with replacement (with
+    ``same_subj`` the targets are the sources), the pair flipped along a
+    random set of axes with ``flip``, and two zero flows as the void
+    outputs (the losses compare the synthesized tensors). Draws from
+    ``rng``, else the module's ``_rng``, in the JAX package's order."""
+    rng = _rng if rng is None else rng
+    spatial = label_maps[0].shape
+    nd = len(spatial)
+    void = np.zeros((batch_size, *spatial, nd), "float32")
+    while True:
+        picks = rng.integers(len(label_maps), size=2 * batch_size)
+        if same_subj:
+            picks[batch_size:] = picks[:batch_size]
+        pair = np.stack([label_maps[i] for i in picks])[..., None]
+        if flip:
+            nb_axes = rng.integers(nd + 1)
+            axes = rng.choice(nd, size=nb_axes, replace=False, shuffle=False)
+            pair = np.flip(pair, axis=tuple(axes + 1))
+        yield [pair[:batch_size], pair[batch_size:]], [void] * 2

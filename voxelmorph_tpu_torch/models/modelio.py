@@ -4,8 +4,11 @@ A checkpoint holds a JSON config (``__config__``: model class name and
 constructor fields) and the flax params flattened to ``a||b||kernel`` keys;
 keys under ``__extra__`` hold optimizer and trainer state, which serving
 ignores, and a model's mutable variable collections (``__extra__state||``,
-MeanStream's buffers here). The format is read and written here with numpy
-alone, so that the JAX package and the port load each other's checkpoints.
+MeanStream's buffers here). A config value that is a config object
+(SynthMorph's ``LabelsToImageConfig``) is stored as the JAX package tags
+it, ``{"__config_class__": name, "data": to_dict()}``. The format is read
+and written here with numpy alone, so that the JAX package and the port
+load each other's checkpoints.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from .. import resolve_device
 from .atlas import ConditionalTemplateCreation, ProbAtlasSegmentation, TemplateCreation
 from .hyper import HyperVxmDense
+from .synthmorph import LabelsToImageConfig, SynthMorphDense
 from .vxm import (InstanceDense, VxmDense, VxmDenseSemiSupervisedPointCloud,
                   VxmDenseSemiSupervisedSeg)
 
@@ -29,7 +33,11 @@ __all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "state_to_jax"
 # the model classes a checkpoint may name, by the JAX class name
 _MODELS = {cls.__name__: cls for cls in (
     VxmDense, VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud, InstanceDense,
-    TemplateCreation, ConditionalTemplateCreation, ProbAtlasSegmentation, HyperVxmDense)}
+    TemplateCreation, ConditionalTemplateCreation, ProbAtlasSegmentation, HyperVxmDense,
+    SynthMorphDense)}
+# the config objects a config value may hold, tagged by class name as the
+# JAX package's register_config does
+_CONFIGS = {cls.__name__: cls for cls in (LabelsToImageConfig,)}
 
 _SEP = "||"
 _EXTRA = "__extra__"
@@ -37,8 +45,10 @@ _EXTRA = "__extra__"
 
 def _decode_config_value(key, val):
     if isinstance(val, dict) and "__config_class__" in val:
-        raise NotImplementedError(
-            f"config class '{val['__config_class__']}' is not ported yet")
+        if val["__config_class__"] not in _CONFIGS:
+            raise NotImplementedError(
+                f"config class '{val['__config_class__']}' is not ported yet")
+        return _CONFIGS[val["__config_class__"]].from_dict(val["data"])
     if isinstance(val, dict) and "__ndarray__" in val:
         return np.asarray(val["__ndarray__"], dtype=val["dtype"])
     if isinstance(val, list):
@@ -62,6 +72,8 @@ def read_checkpoint(path: str, with_extra: bool = False):
 
 
 def _encode_config_value(val):
+    if type(val).__name__ in _CONFIGS:
+        return {"__config_class__": type(val).__name__, "data": val.to_dict()}
     if isinstance(val, torch.dtype):
         return {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16"}[val]

@@ -62,7 +62,7 @@ ACTIVATIONS = {
     "elu": F.elu, "selu": F.selu, "celu": F.celu, "silu": F.silu, "swish": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"), "softplus": F.softplus,
     "soft_sign": F.softsign, "log_sigmoid": F.logsigmoid,
-    "leaky_relu": lambda x: F.leaky_relu(x, 0.01), "hard_tanh": F.hardtanh,
+    "leaky_relu": lambda x: leaky_relu(x, 0.01), "hard_tanh": F.hardtanh,
     "hard_sigmoid": F.hardsigmoid, "hard_silu": F.hardswish, "hard_swish": F.hardswish,
     "softmax": lambda x: F.softmax(x, dim=1), "log_softmax": lambda x: F.log_softmax(x, dim=1),
 }
@@ -256,7 +256,7 @@ class ConvBlock(nn.Module):
             else:
                 out = out + self._flax_conv(self.resfix, x)
         if self.include_activation:
-            out = F.leaky_relu(out, 0.2)
+            out = leaky_relu(out, 0.2)
         return out
 
 
@@ -275,6 +275,31 @@ def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int,
         *lead, *[n for size in spatial for n in (size, factor)], *trail)
     out = out.reshape(*lead, *[size * factor for size in spatial], *trail)
     return out.movedim(-1, 1) if channels_last else out
+
+
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` with JAX's derivative at 0: flax's ``leaky_relu`` is
+    ``where(x >= 0, x, slope x)``, whose derivative there is 1, where
+    torch's is the slope. A zero pre-activation is common: a zero-padded
+    region (SynthMorph's ``out_shape``) through a conv with zero bias."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        y = F.leaky_relu(x, slope)
+        ctx.slope = slope
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return conv3._leaky_grad(g, y, ctx.slope), None
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """LeakyReLU with the JAX package's values and derivatives."""
+    return _LeakyReLU.apply(x, slope)
 
 
 def _pad_to(x: torch.Tensor, shape, value: float) -> torch.Tensor:

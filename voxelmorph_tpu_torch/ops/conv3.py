@@ -393,8 +393,10 @@ def _leaky_grad(g, y, act_slope):
     if act_slope is None:
         return g
     # the slope as a 0-dim CPU tensor of g's dtype: the same product as a
-    # device tensor's, with no copy to the device (which would sync the host)
-    return torch.where(y >= 0, g, g * torch.tensor(act_slope, dtype=g.dtype))
+    # device tensor's, with no copy to the device (which would sync the host);
+    # the product's buffer takes the result, so the mask is the one temporary
+    scaled = g * torch.tensor(act_slope, dtype=g.dtype)
+    return torch.where(y >= 0, g, scaled, out=scaled)
 
 
 def _shifted_dw_db(x: torch.Tensor, gf: torch.Tensor):

@@ -21,7 +21,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["ndgrid", "volshape_to_meshgrid", "interpn", "point_interpn", "resize"]
+__all__ = ["ndgrid", "volshape_to_meshgrid", "interpn", "point_interpn",
+           "interpn_label_onehot", "resize"]
 
 
 # Above this corner-table footprint (V * 2^N * C * itemsize of the compute
@@ -240,6 +241,61 @@ def point_interpn(vol: torch.Tensor, points: torch.Tensor,
                   interp_method: str = "linear") -> torch.Tensor:
     """``vol`` ``(*S, C)`` interpolated at a point cloud ``(M, N)``."""
     return interpn(vol, points, interp_method=interp_method)
+
+
+def interpn_label_onehot(image: torch.Tensor, lab_idx: torch.Tensor, loc: torch.Tensor,
+                         nb_labels: int):
+    """A scalar image and the one-hot encoding of an integer label map,
+    interpolated (linear, clamped to the edge) together at continuous ij
+    locations: the values of ``interpn`` of the two concatenated, without
+    the one-hot ever being built.
+
+    Each cell corner holds one label, so the one-hot's blend is each
+    corner's weight added into the channel its label names: one scatter
+    add per corner into an ``(M, L)`` buffer, in the JAX package's corner
+    order (so each element sums its corners in JAX's order; the corners
+    of other labels add nothing there). A label index outside
+    ``[0, nb_labels)`` (-1: a label missing from the output list) adds
+    nothing, as JAX's compare never matches it.
+
+    Args:
+      image: ``(*S,)`` float image.
+      lab_idx: ``(*S,)`` integer label indices.
+      loc: ``(*S', N)`` locations.
+      nb_labels: L, the one-hot width.
+
+    Returns:
+      ``(image_out (*S',), one_hot (*S', L))``.
+    """
+    nd = loc.shape[-1]
+    spatial = tuple(image.shape)
+    if tuple(lab_idx.shape) != spatial:
+        raise ValueError(f"label map {tuple(lab_idx.shape)} and image {spatial} differ")
+    compute_dtype = loc.dtype if loc.is_floating_point() else torch.float32
+    loc = loc.to(compute_dtype)
+    out_shape = loc.shape[:-1]
+    loc_dims = [loc[..., d].reshape(-1) for d in range(nd)]
+    strides = _flatten_strides(spatial)
+    max_loc = [s - 1 for s in spatial]
+    w0, w1, lin0 = _floor_weights(loc_dims, max_loc, strides, compute_dtype)
+    last = image.numel() - 1
+    img_flat = image.to(compute_dtype).reshape(-1)
+    lab_flat = lab_idx.reshape(-1).long()
+    n = lin0.numel()
+    column = torch.arange(n, device=loc.device) * nb_labels
+    img_out = None
+    one_hot = torch.zeros(n * nb_labels, dtype=compute_dtype, device=loc.device)
+    for bits, off in _corners(nd, strides):
+        # upper-edge cells: the +1 corner's row clamps and carries weight 0
+        rows = (lin0 + off).clamp(0, last)
+        w = _weight(w0, w1, bits)
+        term = w * img_flat[rows]
+        img_out = term if img_out is None else img_out + term
+        lab = lab_flat[rows]
+        valid = (lab >= 0) & (lab < nb_labels)
+        one_hot.index_add_(0, column + lab.clamp(0, nb_labels - 1),
+                           torch.where(valid, w, torch.zeros_like(w)))
+    return img_out.reshape(out_shape), one_hot.reshape(*out_shape, nb_labels)
 
 
 def _resize_matrix(n_in: int, n_out: int, factor: float, interp_method: str) -> np.ndarray:

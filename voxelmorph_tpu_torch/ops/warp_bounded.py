@@ -178,8 +178,11 @@ def _work_counters(device) -> torch.Tensor:
     index = device.index if device.index is not None else torch.cuda.current_device()
     counters = _WORK.get(index)
     if counters is None:
-        counters = torch.zeros(len(WORK_SLOTS), dtype=torch.int32,
-                               device=torch.device("cuda", index))
+        # a normal tensor even when the first warp runs in inference mode (a
+        # register call), so that reset_work may zero it outside
+        with torch.inference_mode(False):
+            counters = torch.zeros(len(WORK_SLOTS), dtype=torch.int32,
+                                   device=torch.device("cuda", index))
         _WORK[index] = counters
     return counters
 

@@ -1,9 +1,10 @@
 """Registration API: one call from an image pair to (moved image, warp).
 
 Counterpart of ``voxelmorph_tpu/registration.py`` for VxmDense models, the
-VxmDense inside a semi-supervised (segmentation or point-cloud) checkpoint,
-and HyperMorph's ``HyperVxmDense``, which takes its hyperparameter as a
-third input (``hyper``, baked into the function a builder returns).
+VxmDense inside a semi-supervised (segmentation or point-cloud) or a
+SynthMorph checkpoint, and HyperMorph's ``HyperVxmDense``, which takes its
+hyperparameter as a third input (``hyper``, baked into the function that
+``build_register_fn`` returns).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .models import synthmorph
 from .models.hyper import HyperVxmDense
 from .models.vxm import (VxmDense, VxmDenseSemiSupervisedPointCloud, VxmDenseSemiSupervisedSeg,
                          registration_model)
@@ -49,7 +51,9 @@ def resolve_registration_model(model, inshape: Optional[Sequence[int]] = None):
     """Return the net that registers images, re-targeted to ``inshape``.
 
     A semi-supervised segmentation or point-cloud model registers through
-    its inner VxmDense (``models.vxm.registration_model``); a VxmDense or a
+    its inner VxmDense (``models.vxm.registration_model``), a SynthMorphDense
+    through its own (``models.synthmorph.registration_model``: it trains on
+    synthesized images and is deployed on acquired ones); a VxmDense or a
     HyperVxmDense registers directly. Both are fully convolutional:
     ``inshape`` only sizes the svf and integration rescale grids, so a
     checkpoint trained at one resolution serves another with the same
@@ -57,6 +61,8 @@ def resolve_registration_model(model, inshape: Optional[Sequence[int]] = None):
     """
     if isinstance(model, (VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud)):
         model = registration_model(model)[0]
+    elif isinstance(model, synthmorph.SynthMorphDense):
+        model = synthmorph.registration_model(model)[0]
     if not isinstance(model, (VxmDense, HyperVxmDense)):
         raise NotImplementedError(f"{type(model).__name__} is not ported yet")
     if inshape is not None and tuple(model.inshape) != tuple(inshape):

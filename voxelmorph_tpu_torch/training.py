@@ -37,7 +37,8 @@ from .py.utils import load_volfile
 __all__ = ["LossTerm", "make_loss_fn", "Trainer", "MetricsLogger", "Prefetcher",
            "find_latest_checkpoint", "init_or_resume", "resolve_dtype",
            "device_cached_pair_indices", "device_cached_pair_generator", "load_volume_stack",
-           "device_cached_semisupervised_generator"]
+           "device_cached_semisupervised_generator", "device_cached_label_indices",
+           "device_cached_label_generator", "load_label_stack"]
 
 # extra trees of a checkpoint: optax's state leaves, the step and the JAX
 # PRNG key as the JAX Trainer writes them, and the port's own generator state
@@ -424,6 +425,47 @@ class Trainer:
         return self._run_epochs(run_epoch, epochs, steps_per_epoch, initial_epoch, model_dir,
                                 save_freq_epochs, save_filename, log_fn, metrics_csv)
 
+    def fit_cached_labels(self, label_maps, epochs: int, steps_per_epoch: int,
+                          steps_per_dispatch: int = 0, batch_size: int = 1,
+                          same_subj: bool = False, flip: bool = True, seed: int = 0,
+                          start_step: Optional[int] = None, initial_epoch: int = 0,
+                          model_dir: Optional[str] = None, save_freq_epochs: int = 20,
+                          save_filename: str = "{epoch:04d}.npz",
+                          log_fn: Callable[[str], None] = print,
+                          metrics_csv: Optional[str] = None) -> Dict[str, float]:
+        """Train SynthMorph on label-map pairs drawn from a stack held on the
+        device (``load_label_stack``: int32).
+
+        The picks and flips come from ``device_cached_label_indices`` from
+        ``start_step`` (default ``initial_epoch * steps_per_epoch``), the
+        stream of ``device_cached_label_generator``, so either path resumes
+        the other's checkpoints on the same sequence. A dispatch is
+        ``steps_per_dispatch`` steps (default: a whole epoch) whose picks and
+        flip flags reach the device in one copy each; each step gathers its
+        pair there, flips it on the device and casts it to float32, as a
+        generator's batch is; the dispatch's metrics stay on the device until
+        one host fetch of their mean. The model's synthesis draws from the
+        Trainer's ``generator``.
+        """
+        steps_per_dispatch = steps_per_dispatch or steps_per_epoch
+        if steps_per_epoch % steps_per_dispatch:
+            raise ValueError("steps_per_epoch must be a multiple of steps_per_dispatch")
+        data, void, stream = _label_stream(
+            label_maps, batch_size, same_subj, flip, seed,
+            start_step if start_step is not None else initial_epoch * steps_per_epoch,
+            self.device)
+
+        def run_epoch():
+            for _ in range(steps_per_epoch // steps_per_dispatch):
+                picks, flags = (torch.from_numpy(np.stack(part)).to(self.device) for part in zip(
+                    *(next(stream) for _ in range(steps_per_dispatch))))
+                means = self._dispatch_mean([self.train_step(*_cached_labels(
+                    data, pk, fl, batch_size, void)) for pk, fl in zip(picks, flags)])
+            return means
+
+        return self._run_epochs(run_epoch, epochs, steps_per_epoch, initial_epoch, model_dir,
+                                save_freq_epochs, save_filename, log_fn, metrics_csv)
+
     def _optax_leaves(self) -> Dict[str, np.ndarray]:
         """Adam's state as ``optax.adam``'s leaves: the step count, then mu
         and nu in the flax parameter order, kernels in the JAX layout."""
@@ -637,3 +679,71 @@ def device_cached_semisupervised_generator(files, labels, downsize: int = 2, bat
         trg_seg = one_hot(seg_data.index_select(0, trg_idx))
         step += 1
         yield [src, trg, src_seg], [trg, zeros, trg_seg]
+
+
+def device_cached_label_indices(n: int, nd: int, batch_size: int = 1, same_subj: bool = False,
+                                flip: bool = True, seed: int = 0, start_step: int = 0):
+    """SynthMorph's sampling stream over ``n`` label maps of ``nd`` axes: per
+    step the picks ``(2B,)`` int32 (sources, then targets; with
+    ``same_subj`` the targets are the sources) and the flip flags ``(nd,)``
+    bool, drawn from ``default_rng((seed, step))`` alone, as in the JAX
+    package, so a run resumed at ``start_step`` continues the uninterrupted
+    sequence."""
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        picks = rng.integers(n, size=2 * batch_size).astype(np.int32)
+        if same_subj:
+            picks[batch_size:] = picks[:batch_size]
+        flags = np.zeros(nd, bool)
+        if flip:
+            nb_axes = int(rng.integers(nd + 1))
+            axes = rng.choice(nd, size=nb_axes, replace=False, shuffle=False)
+            flags[np.asarray(axes, int)] = True
+        step += 1
+        yield picks, flags
+
+
+def load_label_stack(label_maps, device="cuda") -> torch.Tensor:
+    """Integer label maps ``(*S,)`` as one ``(N, *S, 1)`` int32 stack on
+    ``device``."""
+    device = resolve_device(device)
+    return torch.as_tensor(np.stack(label_maps)[..., None].astype(np.int32), device=device)
+
+
+def _label_stream(label_maps, batch_size, same_subj, flip, seed, start_step, device):
+    """The label stack on ``device`` (``load_label_stack``), the void flow
+    targets ``(B, *S, nd)`` and the ``device_cached_label_indices`` stream
+    from ``start_step``."""
+    data = load_label_stack(label_maps, device=device)
+    spatial = tuple(data.shape[1:-1])
+    void = torch.zeros((batch_size, *spatial, len(spatial)), device=data.device)
+    return data, void, device_cached_label_indices(
+        int(data.shape[0]), len(spatial), batch_size=batch_size, same_subj=same_subj,
+        flip=flip, seed=seed, start_step=start_step)
+
+
+def _cached_labels(data, picks, flags, batch_size, void):
+    """A step's ``(inputs, targets)`` from a label stack, the step's picks
+    and its flip flags, both on the stack's device: the picked pair flipped
+    along each flagged axis (chosen on the device, with no host read), and
+    the void targets."""
+    pair = data.index_select(0, picks)
+    for axis in range(flags.shape[0]):
+        pair = torch.where(flags[axis], pair.flip(axis + 1), pair)
+    return [pair[:batch_size], pair[batch_size:]], [void, void]
+
+
+def device_cached_label_generator(label_maps, batch_size: int = 1, same_subj: bool = False,
+                                  flip: bool = True, seed: int = 0, start_step: int = 0,
+                                  device="cuda"):
+    """``generators.synthmorph`` over a label stack held on ``device``
+    (``load_label_stack``): per step only the picks and flip flags of
+    ``device_cached_label_indices`` come from the host, and the pair is
+    gathered and flipped on the device. Yields ``([src, trg], [void,
+    void])``, int32 maps and zero flows on ``device``."""
+    data, void, stream = _label_stream(label_maps, batch_size, same_subj, flip, seed,
+                                       start_step, device)
+    for picks, flags in stream:
+        yield _cached_labels(data, torch.from_numpy(picks).to(data.device),
+                             torch.from_numpy(flags).to(data.device), batch_size, void)
