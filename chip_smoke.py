@@ -11,8 +11,8 @@ Run from the root of the repository:
     python3 chip_smoke.py --compare-gather-source OLD/warp_gather.cu
         # also time an earlier commit's gather kernels on phase 2e's inputs
     python3 chip_smoke.py --conditioning
-        # also the readings behind phase 8's and 12c's card-vs-CPU limits and
-        # 12c's dispatch halo
+        # also the readings behind phase 8's and 12c's card-vs-CPU limits,
+        # 12c's dispatch halo and 13c's masked faces
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
@@ -206,7 +206,20 @@ Phases:
   12e. cli/train_synthmorph --cache-device --steps-per-dispatch 4
      --init-weights the checkpoint on 4 maps at 80x96x112 padded to
      160x192x224 (--out-shape), then cli/register and cli/test of the
-     checkpoint it wrote on the labelled pair (the same Dice).
+     checkpoint it wrote on the labelled pair (the same Dice);
+  13a-b. SynthMorph's joint affine and deformable model: HyperVxmJoint at
+     its defaults (~890 M parameters, drawn on the card from a CUDA
+     generator seeded 0) registers smooth_pair at 160x192x224 through
+     build_joint_register_fn in float32 (TF32 off) and bfloat16: shapes,
+     finite outputs, svf_2 == -svf_1, two calls bit-equal, the work
+     counters of the integration's warp kernels, bfloat16 against float32,
+     no host sync (set_sync_debug_mode("error")) and no conv-kernel launch
+     with set_pallas_conv(True); ms per pair and peak memory of each; the
+     detector's fit of an image to itself is the identity (13b);
+  13c-d. a narrow HyperVxmJoint at 160x192x224 on the card against the
+     CPU in float32 (the pair's faces masked to zero), then saved and
+     served by cli/register --hyper 0.3 and cli/test on the labelled pair,
+     whose Dice must be build_eval_register_fn's.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -230,7 +243,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from voxelmorph_tpu_torch import _build, generators, losses
+from voxelmorph_tpu_torch import _build, generators, losses, registration
 from voxelmorph_tpu_torch.cli import register as register_cli
 from voxelmorph_tpu_torch.cli import sweep_hypermorph as sweep_cli
 from voxelmorph_tpu_torch.cli import test as test_cli
@@ -249,7 +262,8 @@ from voxelmorph_tpu_torch.models.atlas import (ConditionalTemplateCreation,
                                                stream_step)
 from voxelmorph_tpu_torch.models.hyper import HyperVxmDense
 from voxelmorph_tpu_torch.models.modelio import load_model, read_checkpoint, save_model
-from voxelmorph_tpu_torch.models.synthmorph import (LabelsToImageConfig, SynthMorphDense,
+from voxelmorph_tpu_torch.models.synthmorph import (HyperVxmJoint, LabelsToImageConfig,
+                                                    SynthMorphDense, _scale_matrix,
                                                     labels_to_image, labels_to_image_draws,
                                                     labels_to_image_from_draws)
 from voxelmorph_tpu_torch.models.unet import ConvBlock
@@ -4286,6 +4300,300 @@ def synth_clis(smi):
                 cli_s=dict(train=train_s, register=register_s, test=test_s))
 
 
+# Phase 13: SynthMorph's joint affine and deformable model. Its defaults
+# (voxelmorph_tpu/models/synthmorph.py:524-550) are its full width; 13c's
+# cut widths keep a CPU run at 160x192x224 to seconds.
+JOINT_HYPER = 0.5
+JOINT_CLI_HYPER = 0.3
+JOINT_CUT = dict(hyp_units=(8,), enc_nf=(16,) * 4, dec_nf=(16,) * 4, add_nf=(16,) * 4,
+                 aff_num_feat=16, aff_enc_nf=(16,) * 4)
+# bfloat16 against float32 on the card: max|tot_1 diff| as a share of
+# max|tot_1|. Set from the fit's conditioning, not from a run: bfloat16
+# rounds the detector's features, which moves their barycenters by a
+# fraction of a voxel, and the least-squares fit of a seeded init's
+# clustered landmarks passes that on to the affine (13a logs the change
+# of aff_1) and from it to every voxel of tot_1
+JOINT_BF16_RTOL = 0.25
+# 13b: the detector's aff_1 for one image on both sides, against the
+# identity (as tests/test_synthmorph.py holds it on the CPU)
+JOINT_IDENTITY_TOL = 1e-2
+# 13c: the card against the CPU in float32 (TF32 off): tot_1 within this
+# share of max|tot_1| (the CPU tests hold the port to JAX within 1e-5; the
+# fit passes the card's other summation orders on, amplified), the moved
+# image within IMAGE_TOL
+JOINT_GPU_CPU_RTOL = 1e-3
+# 13c's pair is smooth_pair with a zero background this many voxels deep
+# at each face, ramping to the image over as many again, as a
+# skull-stripped scan's. The affine stage samples the images with zero
+# fill, which is discontinuous at the field of view's edge: there a
+# sample's move of 1e-4 voxels (the fit's round-off) can switch it between
+# the fill and the image, and the deformable stage's SVF with it, unless
+# the image is zero there too (--conditioning prints how far 1 + 1e-7
+# noise moves the SVF with and without the mask)
+JOINT_EDGE = 8
+
+
+def joint_counts(label, fn):
+    """The work counters of one call of ``fn``, gated as every serving
+    path's: a bounded kernel ran and each tiered warp ran one branch."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check_warp_work(counts, label, backward=False)
+    return out, counts
+
+
+def joint_outputs_ok(label, out, moved):
+    """Fail unless the joint model's outputs have their shapes, are
+    finite, and svf_2 is -svf_1 bit for bit."""
+    half = tuple(s // 2 for s in INSHAPE)
+    shapes = {"tot_1": (1, *INSHAPE, 3), "svf_1": (1, *half, 3), "def_1": (1, *half, 3)}
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape:
+            raise AssertionError(f"{label}: {key} of shape {tuple(out[key].shape)}")
+    if tuple(moved.shape) != (1, *INSHAPE, 1):
+        raise AssertionError(f"{label}: moved of shape {tuple(moved.shape)}")
+    if not all(torch.isfinite(t).all() for t in (*out.values(), moved)):
+        raise AssertionError(f"{label}: non-finite output")
+    if not torch.equal(out["svf_2"], -out["svf_1"]):
+        raise AssertionError(f"{label}: svf_2 is not -svf_1")
+
+
+def joint_call(label, model, hyp, moving, fixed):
+    """The model's outputs, then one build_joint_register_fn call's moved
+    image and warp with its work counters (gated); the call's warp must be
+    the outputs' tot_1, bit for bit. Returns (out, moved, warp, counts)."""
+    with torch.inference_mode():
+        out = model(hyp, moving, fixed)
+    register = registration.build_joint_register_fn(model)
+    (moved, warp), counts = joint_counts(label, lambda: register(hyp, moving, fixed))
+    joint_outputs_ok(label, out, moved)
+    if not torch.equal(warp, out["tot_1"]):
+        raise AssertionError(f"{label}: two calls differ")
+    return out, moved, warp, counts
+
+
+def joint_full_width(smi, profile):
+    """Phase 13a-b: HyperVxmJoint at its defaults (full width) at INSHAPE,
+    its ~890 M parameters drawn on the card from a CUDA generator seeded
+    SEED, registers smooth_pair at JOINT_HYPER through
+    build_joint_register_fn, in float32 (TF32 off) and in bfloat16: shapes,
+    finite outputs, svf_2 == -svf_1, two calls bit-equal
+    (cudnn.deterministic), the work counters (bounded kernels in the
+    integration, one branch a tiered warp), bfloat16 against float32, no
+    host sync (set_sync_debug_mode("error")) and no conv-kernel launch with
+    set_pallas_conv(True), the outputs unchanged; ms per pair (host clock,
+    5 calls after a warm-up) and peak memory of each. 13b: the detector's
+    aff_1 for the moving image on both sides is the identity."""
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    hyp = torch.full((1, 1), JOINT_HYPER, device="cuda")
+    t0 = time.perf_counter()
+    model = HyperVxmJoint(INSHAPE, generator=torch.Generator("cuda").manual_seed(SEED)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"HyperVxmJoint {INSHAPE} at its defaults: {n_params} parameters "
+        f"({n_params * 4 / 2 ** 30:.3f} GiB in float32), drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    register = registration.build_joint_register_fn(model)
+    results = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with full_float32():
+            out, moved, warp, counts = joint_call("13a float32", model, hyp, moving, fixed)
+            f32 = dict(moved=moved, warp=warp, counts=counts, aff_1=out["aff_1"])
+            torch.cuda.reset_peak_memory_stats()
+            ms = wall_ms(lambda: register(hyp, moving, fixed), reps=5)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"13a float32 (TF32 off): {ms:.2f} ms per pair, peak {peak:.3f} GiB; max|tot_1| "
+            f"{warp.abs().max().item():.4f} voxels, max|svf_1| "
+            f"{out['svf_1'].abs().max().item():.4f}; mean|moved - fixed| "
+            f"{(moved - fixed).abs().mean().item():.5f} (before "
+            f"{(moving - fixed).abs().mean().item():.5f}); launches {f32['counts']}; {smi}")
+        results["float32"] = dict(ms_per_pair=ms, peak_gib=peak)
+        del out
+
+        # 13b: one image on both sides; the detector's fit is the identity
+        ima = torch.stack([warp_ops.transform(m, _scale_matrix(2.0, 3, "cuda"),
+                                              fill_value=0.0, shift_center=False,
+                                              shape=tuple(s // 2 for s in INSHAPE))
+                           for m in moving])
+        with full_float32(), torch.inference_mode():
+            aff = model.affine(ima, ima)["aff_1"][0]
+        eye = torch.eye(3, 4, device="cuda")
+        identity_err = (aff - eye).abs().max().item()
+        log(f"13b the detector on one image both sides: max|aff_1 - I| {identity_err:.3e} "
+            f"(tol {JOINT_IDENTITY_TOL})")
+        if not identity_err <= JOINT_IDENTITY_TOL:
+            raise AssertionError("13b: the detector's fit of an image to itself is not I")
+
+        # the same weights in a bfloat16 model, built on the card
+        bf16 = HyperVxmJoint(INSHAPE, dtype=torch.bfloat16,
+                             generator=torch.Generator("cuda")).eval()
+        bf16.load_state_dict(model.state_dict())
+        del model, register
+        out, moved, warp, counts = joint_call("13a bfloat16", bf16, hyp, moving, fixed)
+        aff_diff = (out["aff_1"] - f32["aff_1"]).abs().max().item()
+        del out
+        register = registration.build_joint_register_fn(bf16)
+        rel = (warp - f32["warp"]).abs().max().item() / f32["warp"].abs().max().item()
+        image_diff = (moved - f32["moved"]).abs().max().item()
+        log(f"13a bfloat16 vs float32: max|aff_1 diff| {aff_diff:.3e}, max|tot_1 diff| / "
+            f"max|tot_1| {rel:.3e} (tol {JOINT_BF16_RTOL}), moved max abs diff "
+            f"{image_diff:.3e}")
+        if not rel <= JOINT_BF16_RTOL:
+            raise AssertionError("13a: the bfloat16 joint warp is too far from float32's")
+        register(hyp, moving, fixed)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced = register(hyp, moving, fixed)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not torch.equal(synced[1], warp):
+            raise AssertionError("13a: the bfloat16 call under sync debug changed the warp")
+        with conv_kernel_mode(True):
+            reset_launches()
+            kernel_mode = register(hyp, moving, fixed)
+            torch.cuda.synchronize()
+            conv_counts = read_launches()
+        same = all(torch.equal(a, b) for a, b in zip(kernel_mode, (moved, warp)))
+        log(f"13a bfloat16: no host sync under set_sync_debug_mode('error'); with "
+            f"set_pallas_conv(True): conv launches {conv_counts['conv']}, outputs bit-equal "
+            f"{same}")
+        if conv_counts["conv"] or not same:
+            raise AssertionError("13a: the joint model took the conv kernel, or its output "
+                                 "changed")
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: register(hyp, moving, fixed), reps=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"13a bfloat16: {ms:.2f} ms per pair, peak {peak:.3f} GiB; launches {counts}; {smi}")
+        results["bfloat16"] = dict(ms_per_pair=ms, peak_gib=peak)
+        if profile:
+            profile_device("HyperVxmJoint register call, bfloat16",
+                           lambda: register(hyp, moving, fixed), rows=20)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return dict(launches=f32["counts"], params=n_params, bf16_vs_f32_rtol=rel,
+                bf16_vs_f32_aff=aff_diff, identity_err=identity_err, **results)
+
+
+def joint_cut_model():
+    """13c's model: HyperVxmJoint at INSHAPE with JOINT_CUT's widths, drawn
+    on the card from seed SEED."""
+    return HyperVxmJoint(INSHAPE, **JOINT_CUT,
+                         generator=torch.Generator("cuda").manual_seed(SEED)).eval()
+
+
+def edge_masked(image, depth=JOINT_EDGE):
+    """``image`` ``(B, *S, C)`` times a mask that is zero within ``depth``
+    voxels of each face and rises linearly to 1 over ``depth`` more."""
+    out = image
+    for axis, size in enumerate(image.shape[1:-1]):
+        x = torch.arange(size, dtype=image.dtype, device=image.device)
+        ramp = ((torch.minimum(x, size - 1 - x) - depth) / depth).clamp(0.0, 1.0)
+        shape = [1] * image.dim()
+        shape[axis + 1] = size
+        out = out * ramp.view(shape)
+    return out
+
+
+def joint_conditioning(model, hyp, masked):
+    """The reading behind JOINT_EDGE: the model on the card, float32, run
+    twice on smooth_pair, the moving image scaled by 1 + 1e-7 noise the
+    second time, unmasked and ``masked``; how far svf_1 and tot_1 move."""
+    unmasked = smooth_pair(INSHAPE, "cuda")
+    noise = 1 + 1e-7 * torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        unmasked[0].shape, dtype=np.float32)).cuda()
+    for name, (moving, fixed) in (("unmasked", unmasked), ("masked", masked)):
+        with full_float32(), torch.inference_mode():
+            a, b = model(hyp, moving, fixed), model(hyp, moving * noise, fixed)
+        log(f"13c --conditioning, the {name} pair twice, 1 + 1e-7 apart: " + ", ".join(
+            f"max|{k} diff| {(a[k] - b[k]).abs().max().item():.3e} of "
+            f"{a[k].abs().max().item():.4f}" for k in ("aff_1", "svf_1", "tot_1")))
+
+
+def joint_vs_cpu_and_clis(smi, conditioning=False):
+    """Phase 13c: JOINT_CUT's model at INSHAPE on the card against the same
+    weights on the CPU, float32 (TF32 off), on smooth_pair edge_masked
+    (JOINT_EDGE): tot_1 and the moved image (with ``conditioning``, also
+    joint_conditioning). 13d:
+    that model saved with save_model, then cli/register --hyper
+    JOINT_CLI_HYPER (moved and warp written) and cli/test on labelled_pair
+    (its Voronoi labels), whose Dice must be that of
+    build_eval_register_fn's outputs."""
+    model = joint_cut_model()
+    moving, fixed = (edge_masked(x) for x in smooth_pair(INSHAPE, "cuda"))
+    hyp = torch.full((1, 1), JOINT_HYPER, device="cuda")
+    with full_float32():
+        card, _ = joint_counts("13c register call",
+                               lambda: registration.build_joint_register_fn(model)(
+                                   hyp, moving, fixed))
+    cpu_model = HyperVxmJoint(INSHAPE, **JOINT_CUT).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu = registration.build_joint_register_fn(cpu_model)(hyp.cpu(), moving.cpu(), fixed.cpu())
+    cpu_s = time.perf_counter() - t0
+    scale = cpu[1].abs().max().item()
+    warp_err = (card[1].cpu() - cpu[1]).abs().max().item()
+    image_err = (card[0].cpu() - cpu[0]).abs().max().item()
+    log(f"13c card vs CPU, {JOINT_CUT}, float32: max|tot_1 diff| {warp_err:.3e} (tol "
+        f"{JOINT_GPU_CPU_RTOL} x max|tot_1| {scale:.4f}); moved max abs err {image_err:.3e} "
+        f"(tol {IMAGE_TOL}); CPU call {cpu_s:.2f} s")
+    if not (warp_err <= JOINT_GPU_CPU_RTOL * scale and image_err <= IMAGE_TOL):
+        raise AssertionError("13c: the joint model on the card disagrees with the CPU")
+    del cpu_model
+    if conditioning:
+        joint_conditioning(model, hyp, (moving, fixed))
+
+    moving_c, fixed_c, src_lab, trg_lab = labelled_pair(INSHAPE, "cpu")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = f"{tmp}/joint.npz"
+            save_model(ckpt, model)
+            for name, vol, lab in (("moving", moving_c, src_lab), ("fixed", fixed_c, trg_lab)):
+                np.savez(f"{tmp}/{name}.npz", vol=vol[0, ..., 0].numpy(), seg=lab.numpy())
+            Path(f"{tmp}/pairs.txt").write_text(f"{tmp}/moving.npz {tmp}/fixed.npz\n")
+            t0 = time.perf_counter()
+            register_cli.main(["--moving", f"{tmp}/moving.npz", "--fixed", f"{tmp}/fixed.npz",
+                               "--model", ckpt, "--moved", f"{tmp}/moved.nii",
+                               "--warp", f"{tmp}/warp.nii", "--hyper", str(JOINT_CLI_HYPER),
+                               "--device", "cuda"])
+            register_s = time.perf_counter() - t0
+            moved = load_volfile(f"{tmp}/moved.nii")
+            warp = load_volfile(f"{tmp}/warp.nii")
+            if moved.shape != INSHAPE or warp.shape != (*INSHAPE, 3) or not (
+                    np.isfinite(moved).all() and np.isfinite(warp).all()):
+                raise AssertionError(f"13d cli/register wrote {moved.shape}, {warp.shape}")
+            t0 = time.perf_counter()
+            scores = test_cli.main(["--model", ckpt, "--pairs", f"{tmp}/pairs.txt",
+                                    "--img-suffix", "", "--seg-prefix", "", "--hyper",
+                                    str(JOINT_CLI_HYPER), "--device", "cuda"])
+            test_s = time.perf_counter() - t0
+            loaded = load_model(ckpt, device="cuda")
+            reset_launches()
+            _, _, carried = registration.build_eval_register_fn(loaded, hyper=JOINT_CLI_HYPER)(
+                moving_c.cuda(), fixed_c.cuda(), src_lab.cuda().float()[None, ..., None])
+            torch.cuda.synchronize()
+            counts = read_launches()
+            check_warp_work(counts, "13d build_eval_register_fn", backward=False)
+            eval_dice = float(np.mean(dice(carried.cpu().numpy().squeeze(), trg_lab.numpy())))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    log(f"13d cli/register --hyper {JOINT_CLI_HYPER}: {register_s:.2f} s, max|warp| "
+        f"{np.abs(warp).max():.3f} voxels; cli/test Dice {scores[0]:.6f} ({test_s:.2f} s), "
+        f"build_eval_register_fn's {eval_dice:.6f} (unregistered "
+        f"{np.mean(dice(src_lab.numpy(), trg_lab.numpy())):.4f}); {smi}")
+    if scores[0] != eval_dice:
+        raise AssertionError("13d: cli/test's Dice differs from build_eval_register_fn's")
+    return dict(gpu_vs_cpu=[warp_err, image_err], cpu_s=cpu_s, test_dice=float(scores[0]),
+                cli_s=dict(register=register_s, test=test_s), eval_launches=counts)
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4304,8 +4612,10 @@ def main(argv=None) -> int:
                              "card-vs-CPU limits: how far 1 + 1e-7 noise on the scan moves "
                              "the CPU's atlas gradient (ATLAS_GRAD_GPU_VS_CPU_L2), how far "
                              "it moves 12c's float32 gradients on the synthesis noise "
-                             "(SYNTH_GRAD_GPU_VS_CPU_RTOL), and how far two runs of the same "
-                             "steps at the default halo differ (SYNTH_DISPATCH_HALO)")
+                             "(SYNTH_GRAD_GPU_VS_CPU_RTOL), how far two runs of the same "
+                             "steps at the default halo differ (SYNTH_DISPATCH_HALO), and "
+                             "how far it moves 13c's joint model on the card, with the "
+                             "pair's faces masked and not (JOINT_EDGE)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -4486,6 +4796,15 @@ def main(argv=None) -> int:
     synth_cli = synth_clis(smi)
     log(f"phase 12e: {time.perf_counter() - t:.2f} s; phase 12: {time.perf_counter() - t12:.2f} s")
 
+    t13 = t = phase("13a-b. SynthMorph's joint model at full width")
+    joint = joint_full_width(smi, args.profile)
+    log(f"phase 13a-b: {time.perf_counter() - t:.2f} s")
+
+    t = phase("13c-d. the joint model card vs CPU; its CLIs")
+    joint_cli = joint_vs_cpu_and_clis(smi, args.conditioning)
+    log(f"phase 13c-d: {time.perf_counter() - t:.2f} s; phase 13: "
+        f"{time.perf_counter() - t13:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -4513,7 +4832,9 @@ def main(argv=None) -> int:
              "train_step_synthmorph_fullres": synth_full[True]["launches"],
              # cli/train_synthmorph's whole dispatch of DISPATCH_STEPS steps
              # (maps padded to INSHAPE)
-             "train_step_synthmorph_cached_dispatch": synth_cli["launches"]}
+             "train_step_synthmorph_cached_dispatch": synth_cli["launches"],
+             # one float32 register call of the full-width joint model
+             "register_joint": joint["launches"]}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -4605,6 +4926,8 @@ def main(argv=None) -> int:
                 key: val for key, val in v.items() if key != "launches"}
                 for k, v in synth_full.items()},
             clis={k: v for k, v in synth_cli.items() if k != "launches"}),
+        joint=dict(full_width={k: v for k, v in joint.items() if k != "launches"},
+                   cut_width={k: v for k, v in joint_cli.items() if k != "eval_launches"}),
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

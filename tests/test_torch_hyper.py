@@ -35,6 +35,7 @@ from voxelmorph_tpu import losses as jax_losses
 from voxelmorph_tpu import registration as jax_registration
 from voxelmorph_tpu import training as jax_training
 from voxelmorph_tpu.models import HyperVxmDense as JaxHyper
+from voxelmorph_tpu.models import HyperVxmJoint as JaxJoint
 from voxelmorph_tpu.models import load_model as jax_load_model
 from voxelmorph_tpu.models import save_model as jax_save_model
 from voxelmorph_tpu.models.unet import HyperConv as JaxHyperConv
@@ -43,6 +44,7 @@ from voxelmorph_tpu_torch import registration
 from voxelmorph_tpu_torch.cli.train_hypermorph import hypermorph_terms
 from voxelmorph_tpu_torch.models import modelio
 from voxelmorph_tpu_torch.models.hyper import HyperVxmDense
+from voxelmorph_tpu_torch.models.synthmorph import HyperVxmJoint
 from voxelmorph_tpu_torch.models.unet import HyperConv, Unet
 from voxelmorph_tpu_torch.ops.interp import resize
 from voxelmorph_tpu_torch.training import Trainer
@@ -362,8 +364,11 @@ def test_committed_checkpoint_matches_jax():
 def test_registration_api_with_hyper():
     """build_register_fn and build_eval_register_fn bake ``hyper`` into a
     HyperVxmDense's input as JAX's do; resolve_registration_model
-    re-targets one; enable_fast_warp passes it through; HyperVxmJoint (not
-    ported) raises."""
+    re-targets one; enable_fast_warp passes it through; build_eval_register_fn
+    serves a small HyperVxmJoint (``hyp`` filled with ``hyper``) as JAX's
+    does, its warp and image within 1e-4 (they follow the detector's
+    least-squares fit; see tests/test_torch_joint.py) and its segmentation
+    equal."""
     cfg = dict(CFG, svf_resolution=2)
     jm, params = _jax_model(cfg, batch=1)
     model = _torch_model(cfg, params).eval()
@@ -390,9 +395,18 @@ def test_registration_api_with_hyper():
     for a, b in zip(retargeted.parameters(), model.parameters()):
         assert torch.equal(a, b)
     assert registration.enable_fast_warp(model) is model
-    joint = type("HyperVxmJoint", (torch.nn.Module,), {})()
-    with pytest.raises(NotImplementedError, match="HyperVxmJoint"):
-        registration.build_eval_register_fn(joint)
+
+    cfg = dict(in_shape=SHAPE, int_steps=3, hyp_units=(4,), enc_nf=(4, 8), dec_nf=(8, 4),
+               add_nf=(4,), aff_num_feat=8, aff_enc_nf=(8,))
+    joint = HyperVxmJoint(**cfg, generator=torch.Generator().manual_seed(0)).eval()
+    joint_params = unflatten(modelio.params_to_jax(dict(joint.named_parameters())))
+    moved_j, warp_j, seg_j = registration.build_eval_register_fn(joint, hyper=0.3)(
+        *map(torch.from_numpy, (src, trg, seg)))
+    ref_moved, ref_warp, ref_seg = jax_registration.build_eval_register_fn(
+        JaxJoint(**cfg), hyper=0.3)(joint_params, src, trg, seg)
+    assert_rel_close(warp_j.numpy(), np.asarray(ref_warp), 1e-4, "joint warp")
+    assert_rel_close(moved_j.numpy(), np.asarray(ref_moved), 1e-4, "joint moved")
+    np.testing.assert_array_equal(seg_j.numpy(), np.asarray(ref_seg))
 
 
 def test_fit_cached_pairs_extra_stream_dispatch_equals_single_steps():

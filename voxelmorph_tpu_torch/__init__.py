@@ -22,3 +22,10 @@ def resolve_device(device="cuda") -> torch.device:
             "voxelmorph_tpu_torch runs on the GPU by default, and no CUDA "
             "device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+from . import generators, layers, losses, ops, py  # noqa: E402
+from . import models  # noqa: E402
+from . import networks  # noqa: E402,F401
+from . import utils  # noqa: E402,F401
+from . import registration, training  # noqa: E402

@@ -1,4 +1,5 @@
-"""Register a moving to a fixed image with a trained VxmDense or HyperMorph model.
+"""Register a moving to a fixed image with a trained VxmDense, HyperMorph or
+SynthMorph joint (affine and deformable) model.
 
 The PyTorch counterpart of ``scripts/register.py``, with its flags:
 
@@ -7,9 +8,10 @@ The PyTorch counterpart of ``scripts/register.py``, with its flags:
 
 ``--fast-warp`` warps the moving image by bounded warps of the integration
 root (``registration.enable_fast_warp``); the warp is unchanged (a
-HyperMorph model takes the exact warp, as in the JAX package). ``--hyper``
-is a HyperMorph model's hyperparameter. It runs on the GPU unless
-``--device cpu`` is given.
+HyperMorph or joint model takes the exact warp, as in the JAX package).
+``--hyper`` is a HyperMorph model's hyperparameter, or a HyperVxmJoint's
+``hyp`` (``registration.register_pair``), whose warp acts on zero-based
+indices. It runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ def parse_args(argv=None):
     parser.add_argument('--multichannel', action='store_true',
                         help='volumes already carry a trailing channel axis')
     parser.add_argument('--hyper', type=float, default=0.5,
-                        help='hyperparameter fed to HyperMorph models (HyperVxmDense; '
-                             'ignored by others)')
+                        help='hyperparameter fed to HyperMorph models (HyperVxmDense/'
+                             'HyperVxmJoint; ignored by others)')
     parser.add_argument('--fast-warp', action='store_true',
                         help='warp the moving image via the phase-warp fast path (bounded '
                              'warps by the integration root instead of one full-res gather; '

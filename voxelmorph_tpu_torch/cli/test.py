@@ -10,9 +10,9 @@ along with nearest interpolation in the same call, and prints the hard-label
 Dice against the fixed segmentation; the first call (which builds the
 kernels) is left out of the average time. ``--fast-warp`` times the
 phase-warp path; the Dice, computed on the segmentation carried by pos_flow,
-is the same. ``--hyper`` is a HyperMorph model's hyperparameter
-(``registration.build_eval_register_fn``). It runs on the GPU unless
-``--device cpu`` is given.
+is the same. ``--hyper`` is a HyperMorph model's hyperparameter, or a
+SynthMorph joint model's ``hyp`` (``registration.build_eval_register_fn``).
+It runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ def parse_args(argv=None):
     parser.add_argument('--seg-prefix', help='string prepended to every seg path in the list')
     parser.add_argument('--labels', help='optional label list to compute dice for (npy format)')
     parser.add_argument('--hyper', type=float, default=0.5,
-                        help='hyperparameter for HyperMorph models (HyperVxmDense; ignored '
-                             'by others)')
+                        help='hyperparameter for HyperMorph models (HyperVxmDense/'
+                             'HyperVxmJoint; ignored by others)')
     parser.add_argument('--multichannel', action='store_true',
                         help='volumes already carry a trailing channel axis')
     parser.add_argument('--fast-warp', action='store_true',

@@ -5,9 +5,8 @@ The port's own copy of the generators of ``voxelmorph_tpu/generators.py``
 ``template_creation``, ``conditional_template_creation``,
 ``surf_semisupervised``, ``synthmorph``), with the same ``(inputs,
 outputs)`` tuple contracts. Each takes an explicit ``np.random.Generator``
-(``rng``; a fresh unseeded one by default, and for ``synthmorph`` the
-module's own ``_rng``, as in the JAX package) and draws from it in the JAX
-package's order. The first four yield numpy arrays;
+(``rng``; by default the module's own, which ``seed_rng`` seeds, as in the
+JAX package) and draws from it in the JAX package's order. The first four yield numpy arrays;
 ``surf_semisupervised`` computes its distance transforms and point clouds
 with torch on its ``device`` (``py.ndimage``) and yields tensors there.
 """
@@ -23,11 +22,30 @@ import torch
 from .py import utils as py_utils
 from .py.utils import load_volfile
 
-__all__ = ["volgen", "scan_to_scan", "scan_to_atlas", "semisupervised", "template_creation",
-           "conditional_template_creation", "surf_semisupervised", "synthmorph"]
+__all__ = ["seed_rng", "volgen", "scan_to_scan", "scan_to_atlas", "semisupervised",
+           "template_creation", "conditional_template_creation", "surf_semisupervised",
+           "synthmorph"]
 
-# synthmorph's stream when no rng is given, the JAX module's ``_rng``
+# the stream of every generator given no rng, the JAX module's ``_rng``
 _rng = np.random.default_rng()
+
+
+def seed_rng(seed):
+    """Seed the module's generator (for reproducible data streams); every
+    generator given no ``rng`` draws from it, those already running too."""
+    global _rng
+    _rng = np.random.default_rng(seed)
+
+
+class _ModuleRng:
+    """The module's generator as ``seed_rng`` last set it, looked up at
+    each draw."""
+
+    def __getattr__(self, name):
+        return getattr(_rng, name)
+
+
+_MODULE_RNG = _ModuleRng()
 
 
 def _expand_names(vol_names):
@@ -54,7 +72,7 @@ def volgen(vol_names, batch_size=1, segs=None, np_var="vol", pad_shape=None, res
     names = _expand_names(vol_names)
     if isinstance(segs, list) and len(segs) != len(names):
         raise ValueError("Number of image files must match number of seg files.")
-    rng = np.random.default_rng() if rng is None else rng
+    rng = _MODULE_RNG if rng is None else rng
     opts = dict(np_var=np_var, pad_shape=pad_shape, resize_factor=resize_factor,
                 add_feat_axis=add_feat_axis)
     while True:
@@ -76,7 +94,7 @@ def scan_to_scan(vol_names, bidir=False, batch_size=1, prob_same=0, no_warp=Fals
                  rng=None, **kwargs):
     """Random scan pairs: inputs [src, trg], outputs [trg(, src)](, zero flow).
     With ``prob_same`` one side is sometimes copied to the other."""
-    rng = np.random.default_rng() if rng is None else rng
+    rng = _MODULE_RNG if rng is None else rng
     gen = volgen(vol_names, batch_size=batch_size, rng=rng, **kwargs)
     flow = None
     while True:
@@ -178,7 +196,7 @@ def conditional_template_creation(vol_names, atlas, attributes, batch_size=1, np
     outputs [scans] and three zero flows. ``attributes`` maps each name of
     ``vol_names`` to its phenotype vector (``py.utils.load_pheno_csv``);
     ``atlas`` ``(1, *S, C)`` is repeated over the batch."""
-    rng = np.random.default_rng() if rng is None else rng
+    rng = _MODULE_RNG if rng is None else rng
     flow = _zero_flow(batch_size, atlas.shape[1:-1])
     atlas = np.repeat(atlas, batch_size, axis=0)
     names = list(vol_names)
@@ -271,7 +289,7 @@ def surf_semisupervised(vol_names, atlas_vol, atlas_seg, nb_surface_pts, labels=
         raise ValueError("number of surface points must be positive")
     if batch_size != 1:
         raise ValueError("only batch size 1 supported for now")
-    rng = np.random.default_rng() if rng is None else rng
+    rng = _MODULE_RNG if rng is None else rng
     atlas_seg = torch.as_tensor(np.asarray(atlas_seg), device=device)
     if labels is not None:
         atlas_seg = py_utils.filter_labels(atlas_seg, labels)
@@ -349,8 +367,8 @@ def synthmorph(label_maps, batch_size=1, same_subj=False, flip=True, rng=None):
     ``same_subj`` the targets are the sources), the pair flipped along a
     random set of axes with ``flip``, and two zero flows as the void
     outputs (the losses compare the synthesized tensors). Draws from
-    ``rng``, else the module's ``_rng``, in the JAX package's order."""
-    rng = _rng if rng is None else rng
+    ``rng``, else the module's generator, in the JAX package's order."""
+    rng = _MODULE_RNG if rng is None else rng
     spatial = label_maps[0].shape
     nd = len(spatial)
     void = np.zeros((batch_size, *spatial, nd), "float32")

@@ -99,8 +99,12 @@ class MSE:
     def __init__(self, image_sigma: float = 1.0):
         self.image_sigma = image_sigma
 
+    def mse(self, y_true, y_pred):
+        """The squared error of each element, unweighted."""
+        return torch.square(y_true - y_pred)
+
     def loss(self, y_true, y_pred, reduce: Optional[str] = "mean"):
-        m = torch.square(y_true - y_pred)
+        m = self.mse(y_true, y_pred)
         if reduce == "mean":
             m = m.mean()
         elif reduce == "max":
@@ -169,6 +173,10 @@ class Grad:
         if self.loss_mult is not None:
             grad = grad * self.loss_mult
         return grad
+
+    def mean_loss(self, y_true, y_pred):
+        """The penalty averaged over the batch."""
+        return torch.mean(self.loss(y_true, y_pred))
 
 
 def _degree_matrix(vol_shape: Sequence[int]) -> torch.Tensor:

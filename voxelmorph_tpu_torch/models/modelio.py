@@ -23,21 +23,43 @@ import torch
 from .. import resolve_device
 from .atlas import ConditionalTemplateCreation, ProbAtlasSegmentation, TemplateCreation
 from .hyper import HyperVxmDense
-from .synthmorph import LabelsToImageConfig, SynthMorphDense
+from .synthmorph import (HyperVxmJoint, LabelsToImageConfig, SynthMorphDense,
+                         VxmAffineFeatureDetector)
 from .vxm import (InstanceDense, VxmDense, VxmDenseSemiSupervisedPointCloud,
                   VxmDenseSemiSupervisedSeg)
 
 __all__ = ["read_checkpoint", "params_from_jax", "params_to_jax", "state_to_jax",
-           "checkpoint_state", "load_weights", "load_model", "save_model"]
+           "checkpoint_state", "load_weights", "load_model", "save_model", "register_model",
+           "register_config", "MODEL_REGISTRY", "CONFIG_REGISTRY"]
 
 # the model classes a checkpoint may name, by the JAX class name
 _MODELS = {cls.__name__: cls for cls in (
     VxmDense, VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud, InstanceDense,
     TemplateCreation, ConditionalTemplateCreation, ProbAtlasSegmentation, HyperVxmDense,
-    SynthMorphDense)}
+    SynthMorphDense, VxmAffineFeatureDetector, HyperVxmJoint)}
 # the config objects a config value may hold, tagged by class name as the
 # JAX package's register_config does
 _CONFIGS = {cls.__name__: cls for cls in (LabelsToImageConfig,)}
+# the JAX package's names for the two registries
+MODEL_REGISTRY, CONFIG_REGISTRY = _MODELS, _CONFIGS
+
+
+def register_model(cls):
+    """Class decorator: make a model class loadable by name. The class takes
+    its checkpoint's config as keyword arguments and keeps them in
+    ``config``, for ``save_model``."""
+    _MODELS[cls.__name__] = cls
+    return cls
+
+
+def register_config(cls):
+    """Class decorator: make a config object a checkpoint's config may hold
+    (stored tagged by class name); it needs ``to_dict()`` and a classmethod
+    ``from_dict(dict)`` with JSON-safe contents."""
+    if not (hasattr(cls, "to_dict") and hasattr(cls, "from_dict")):
+        raise TypeError(f"{cls.__name__} needs to_dict/from_dict for checkpoint round-trips")
+    _CONFIGS[cls.__name__] = cls
+    return cls
 
 _SEP = "||"
 _EXTRA = "__extra__"
@@ -120,10 +142,13 @@ def _state_keys(model: torch.nn.Module) -> Dict[str, str]:
     return keys
 
 
-def state_to_jax(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+def state_to_jax(model: torch.nn.Module,
+                 tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
     """The model's mutable collections as the JAX Trainer's ``state`` tree,
-    flattened (``stream||mean_stream||mean``); empty for a stateless model."""
+    flattened (``stream||mean_stream||mean``); empty for a stateless model.
+    ``tensors`` (buffers by state-dict name) replaces the model's values."""
     buffers = dict(model.named_buffers())
+    buffers.update({k: v for k, v in (tensors or {}).items() if k in buffers})
     return {key: buffers[name].detach().to(torch.float32).cpu().numpy()
             for key, name in _state_keys(model).items()}
 
@@ -149,20 +174,24 @@ def load_weights(model: torch.nn.Module, flat: Dict[str, np.ndarray],
 
 
 def save_model(path: str, model: torch.nn.Module,
-               extra_trees: Optional[Dict[str, Dict[str, np.ndarray]]] = None) -> None:
+               extra_trees: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+               tensors: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Write ``model`` (its config and float32 params) as the JAX package's
     ``save_model`` does, which its ``load_model`` reads. ``extra_trees`` maps
     names to flat ``{key: array}`` dicts, stored under ``__extra__name||key``;
     a model with mutable collections (MeanStream) adds its buffers as the
-    ``state`` tree, as the JAX Trainer writes them. The file is written under
-    a temporary name and renamed into place."""
+    ``state`` tree, as the JAX Trainer writes them. ``tensors`` (parameters
+    and buffers by state-dict name, a copy taken earlier) are written in
+    place of the model's current values. The file is written under a
+    temporary name and renamed into place."""
     blob = {"class": type(model).__name__,
             "config": {k: _encode_config_value(v) for k, v in model.config.items()},
             "extra": {}}
     encoded = json.dumps(blob)
-    flat = params_to_jax(dict(model.named_parameters()))
+    tensors = tensors or {}
+    flat = params_to_jax({n: tensors.get(n, p) for n, p in model.named_parameters()})
     extra_trees = dict(extra_trees or {})
-    state = state_to_jax(model)
+    state = state_to_jax(model, tensors)
     if state:
         extra_trees.setdefault("state", state)
     for name, tree in extra_trees.items():

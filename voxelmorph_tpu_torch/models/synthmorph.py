@@ -11,25 +11,40 @@ deterministic map from them (``labels_to_image_from_draws``), so that a test
 can replay the JAX package's draws. The synthesis is data: it runs without
 autograd, on plain torch gathers (JAX's XLA gathers), and only the
 registration network's outputs carry gradients.
+
+The joint affine and deformable model is here too: ``VxmAffineFeatureDetector``
+(a conv encoder whose feature maps' barycenters are soft landmarks for a
+symmetric least-squares affine) and ``HyperVxmJoint`` (that affine stage at
+half resolution, then a hypernetwork-conditioned encoder-decoder of
+``HyperConv``s on the affinely aligned pair, whose symmetrised SVF is
+integrated by scaling and squaring). Their convs are flax ``nn.Conv``s and
+``HyperConv``s in the JAX package, XLA's convolutions there, so they are
+cuDNN's here in every conv mode; the integration takes the tiered warp's
+kernels. Their matrices act on zero-based indices (``shift_center=False``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import affine as affine_ops
 from ..ops import warp as warp_ops
-from ..ops.image import gaussian_blur, multiscale_noise_draws, multiscale_noise_from_draws
+from ..ops.image import (barycenter, gaussian_blur, multiscale_noise_draws,
+                         multiscale_noise_from_draws, sqrtm)
 from ..ops.interp import interpn_label_onehot, ndgrid
+from .unet import HyperConv, _upsample_nearest, leaky_relu, lecun_normal_
 from .vxm import _DTYPES, VxmDense
 
 __all__ = ["LabelsToImageConfig", "labels_to_image", "labels_to_image_draws",
            "labels_to_image_from_draws", "shared_intensity", "SynthMorphDense",
-           "registration_model"]
+           "registration_model", "VxmAffineFeatureDetector", "HyperVxmJoint"]
 
 
 class LabelsToImageConfig:
@@ -355,3 +370,371 @@ def registration_model(model: SynthMorphDense):
     if not isinstance(model, SynthMorphDense):
         raise ValueError(f"no SynthMorph registration net in {type(model).__name__}")
     return model.vxm, model.vxm.state_dict()
+
+
+def _scale_matrix(fact, nd: int, device=None) -> torch.Tensor:
+    """The ``(nd, nd + 1)`` matrix that scales zero-based indices by
+    ``fact``, made on ``device`` by fills (no copy from the host)."""
+    return torch.eye(nd, nd + 1, device=device) * float(fact)
+
+
+def _on_device(values: Sequence[float], device) -> torch.Tensor:
+    """A float32 vector of ``values`` made on ``device`` by fills (writing
+    them into its elements would copy each from the host, which waits for
+    the device)."""
+    return torch.stack([torch.full((), float(v), device=device) for v in values])
+
+
+def _cen_matrix(shape: Sequence[int], sign: float, device=None) -> torch.Tensor:
+    """The ``(N, N + 1)`` shift by ``sign`` times the centre of ``shape``:
+    from centred to zero-based indices (+1) and back (-1); made by fills."""
+    shift = _on_device([sign * 0.5 * (float(s) - 1.0) for s in shape], device)
+    return torch.cat([torch.eye(len(shape), device=device), shift[:, None]], dim=1)
+
+
+def _compose(*transforms: torch.Tensor) -> torch.Tensor:
+    """``ops.warp.compose`` with ``shift_center=False`` per sample of
+    batched transforms ``(B, ...)``: JAX's ``vmap`` of it."""
+    return torch.stack([warp_ops.compose(list(ts), shift_center=False)
+                        for ts in zip(*transforms)])
+
+
+def _warp_to(images: torch.Tensor, trfs: torch.Tensor, shape=None,
+             interp_method: str = "linear") -> torch.Tensor:
+    """Each image ``(B, *S, C)`` transformed by its matrix or dense
+    transform with zero fill on zero-based indices (into ``shape`` for a
+    matrix): JAX's ``vmap`` of ``transform``."""
+    return torch.stack([warp_ops.transform(i, t, interp_method=interp_method, fill_value=0.0,
+                                           shift_center=False, shape=shape)
+                        for i, t in zip(images, trfs)])
+
+
+def _init_device(generator: Optional[torch.Generator]):
+    """Build parameters on the generator's device, so that a CUDA generator
+    draws them there (a full-width joint model has about 890 M)."""
+    return contextlib.nullcontext() if generator is None else torch.device(generator.device)
+
+
+class _FeatureEncoder(nn.Module):
+    """The detector's conv encoder(-decoder): ``enc_nf`` levels of
+    ``per_level`` conv + LeakyReLU(0.2) blocks, each followed by a 2x max
+    pool, ``dec_nf`` levels of convs, each followed by nearest 2x
+    upsampling and the matching encoder level's output, ``add_nf`` convs,
+    and the ``feat`` conv of ``num_feat`` channels with a ReLU, cast to
+    float32. Its convs are flax's ``nn.Conv`` (lecun-normal kernel, zero
+    bias) in ``dtype``, the bias added to the rounded output; its pools
+    pass a window's gradient to its first maximum, as flax's ``max_pool``
+    does. ``forward`` takes and returns channels-last ``(B, *S, C)``; images
+    have one channel."""
+
+    def __init__(self, ndims: int, num_feat: int = 64, enc_nf=(256, 256, 256, 256),
+                 dec_nf=(), add_nf=(256, 256, 256, 256), per_level: int = 1,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.ndims = ndims
+        self.enc_nf, self.dec_nf, self.add_nf = tuple(enc_nf), tuple(dec_nf), tuple(add_nf)
+        self.per_level = per_level
+        self.dtype = _DTYPES.get(dtype, dtype)
+        conv_cls = getattr(nn, f"Conv{ndims}d")
+
+        def conv(name, cin, n):
+            layer = conv_cls(cin, n, 3, padding=1)
+            lecun_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+            self.add_module(name, layer)
+            return n
+
+        with _init_device(generator):
+            ch, skips = 1, []
+            for li, n in enumerate(self.enc_nf):
+                for ci in range(per_level):
+                    ch = conv(f"enc_{li}_{ci}", ch, n)
+                skips.append(ch)
+            for li, n in enumerate(self.dec_nf):
+                for ci in range(per_level):
+                    ch = conv(f"dec_{li}_{ci}", ch, n)
+                ch += skips.pop()
+            for li, n in enumerate(self.add_nf):
+                ch = conv(f"add_{li}", ch, n)
+            conv("feat", ch, num_feat)
+
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        layer = getattr(self, name)
+        out = getattr(F, f"conv{self.ndims}d")(x, layer.weight.to(self.dtype), padding=1)
+        return out + layer.bias.to(self.dtype).view(-1, *[1] * self.ndims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nd = self.ndims
+        x = x.movedim(-1, 1).to(self.dtype)
+        enc = []
+        for li in range(len(self.enc_nf)):
+            for ci in range(self.per_level):
+                x = leaky_relu(self._conv(f"enc_{li}_{ci}", x), 0.2)
+            enc.append(x)
+            x = getattr(F, f"max_pool{nd}d")(x, 2, 2)
+        for li in range(len(self.dec_nf)):
+            for ci in range(self.per_level):
+                x = leaky_relu(self._conv(f"dec_{li}_{ci}", x), 0.2)
+            x = torch.cat([_upsample_nearest(x, 2, nd), enc.pop()], dim=1)
+        for li in range(len(self.add_nf)):
+            x = leaky_relu(self._conv(f"add_{li}", x), 0.2)
+        return F.relu(self._conv("feat", x)).float().movedim(1, -1)
+
+
+class VxmAffineFeatureDetector(nn.Module):
+    """Symmetric affine (or rigid) registration by feature-map barycenters.
+
+    A shared ``_FeatureEncoder`` (``detector``) maps each image to
+    ``num_feat`` non-negative maps; their centres of mass are soft
+    landmarks, and a least-squares fit in each direction (weighted by the
+    product of the two images' normalised channel powers with
+    ``weighted``), averaged with the inverse of the other, gives a
+    symmetric affine. ``forward(im_1, im_2)`` takes full-resolution
+    single-channel images ``(B, *in_shape, 1)`` and returns ``aff_1`` and
+    ``aff_2``, inverse matrices ``(B, N, N + 1)`` on zero-based indices at
+    full resolution (or half with ``return_trans_to_half_res``), plus
+    ``dense_1``/``dense_2`` (``make_dense``), ``moved_1``/``moved_2``
+    (``return_moved``, zero fill) and ``feat_1``/``feat_2``
+    (``return_feat``). ``half_res`` detects on images downsampled by 2,
+    ``rigid`` keeps the fit's shift and rotation, and
+    ``return_trans_to_mid_space`` returns each matrix's square root. The
+    constructor takes the JAX module's fields; ``generator`` draws the
+    initial weights, on its device.
+    """
+
+    def __init__(self, in_shape: Sequence[int], num_feat: int = 64,
+                 enc_nf=(256, 256, 256, 256), dec_nf=(), add_nf=(256, 256, 256, 256),
+                 per_level: int = 1, half_res: bool = True, weighted: bool = True,
+                 rigid: bool = False, make_dense: bool = True, bidir: bool = False,
+                 return_trans_to_mid_space: bool = False,
+                 return_trans_to_half_res: bool = False, return_moved: bool = False,
+                 return_feat: bool = False, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dtype = _DTYPES.get(dtype, dtype)
+        self.config = dict(
+            in_shape=tuple(in_shape), num_feat=num_feat, enc_nf=tuple(enc_nf),
+            dec_nf=tuple(dec_nf), add_nf=tuple(add_nf), per_level=per_level,
+            half_res=half_res, weighted=weighted, rigid=rigid, make_dense=make_dense,
+            bidir=bidir, return_trans_to_mid_space=return_trans_to_mid_space,
+            return_trans_to_half_res=return_trans_to_half_res, return_moved=return_moved,
+            return_feat=return_feat, dtype=dtype)
+        for key, val in self.config.items():
+            setattr(self, key, val)
+        if len(self.in_shape) not in (2, 3):
+            raise ValueError("only 2D and 3D supported")
+        if return_trans_to_half_res and not half_res:
+            raise ValueError("return_trans_to_half_res needs half_res=True")
+        self.detector = _FeatureEncoder(len(self.in_shape), num_feat, enc_nf, dec_nf, add_nf,
+                                        per_level, dtype, generator)
+
+    def forward(self, im_1: torch.Tensor, im_2: torch.Tensor) -> dict:
+        shape_full = tuple(self.in_shape)
+        shape_half = tuple(s // 2 for s in shape_full)
+        nd = len(shape_full)
+        device = im_1.device
+        batch = im_1.shape[0]
+
+        def rep(m):
+            return m[None].expand(batch, *m.shape)
+
+        inp_1, inp_2 = im_1, im_2
+        if self.half_res:
+            scale2 = rep(_scale_matrix(2.0, nd, device))
+            inp_1, inp_2 = _warp_to(im_1, scale2, shape_half), _warp_to(im_2, scale2, shape_half)
+        feat_1, feat_2 = self.detector(inp_1), self.detector(inp_2)
+
+        # barycenters in centred coordinates, scaled to full resolution
+        size = _on_device(shape_full, device)
+        cen_1, cen_2 = barycenter(feat_1) * size, barycenter(feat_2) * size
+
+        # channel weights from the total power of each feature
+        axes = tuple(range(1, nd + 1))
+        pow_1, pow_2 = feat_1.sum(dim=axes), feat_2.sum(dim=axes)
+        pow_1 = pow_1 / pow_1.sum(dim=-1, keepdim=True)
+        pow_2 = pow_2 / pow_2.sum(dim=-1, keepdim=True)
+        weights = pow_1 * pow_2 if self.weighted else None
+
+        aff_1 = affine_ops.fit_affine(cen_1, cen_2, weights=weights)
+        aff_2 = affine_ops.fit_affine(cen_2, cen_1, weights=weights)
+        aff_1 = 0.5 * (affine_ops.invert_affine(aff_2) + aff_1)
+        if self.rigid:
+            par = affine_ops.affine_matrix_to_params(aff_1)[:, :nd * (nd + 1) // 2]
+            aff_1 = affine_ops.params_to_affine_matrix(par, ndims=nd)
+        aff_2 = affine_ops.invert_affine(aff_1)
+        if self.return_trans_to_mid_space:
+            aff_1 = sqrtm(affine_ops.make_square_affine(aff_1))[:, :-1, :]
+            aff_2 = sqrtm(affine_ops.make_square_affine(aff_2))[:, :-1, :]
+
+        # from centred to zero-based indices at full resolution
+        un_cen = rep(_cen_matrix(shape_full, +1.0, device))
+        cen = rep(_cen_matrix(shape_full, -1.0, device))
+        aff_1, aff_2 = _compose(un_cen, aff_1, cen), _compose(un_cen, aff_2, cen)
+        if self.return_trans_to_half_res:
+            s2 = rep(_scale_matrix(2.0, nd, device))
+            aff_1, aff_2 = _compose(aff_1, s2), _compose(aff_2, s2)
+
+        out = {"aff_1": aff_1, "aff_2": aff_2}
+        shape_out = shape_half if self.return_trans_to_half_res else shape_full
+        if self.make_dense:
+            out["dense_1"] = affine_ops.affine_to_dense_shift(aff_1, shape_out,
+                                                              shift_center=False)
+            out["dense_2"] = affine_ops.affine_to_dense_shift(aff_2, shape_out,
+                                                              shift_center=False)
+        if self.return_moved:
+            out["moved_1"] = _warp_to(im_1, aff_1, shape_out)
+            out["moved_2"] = _warp_to(im_2, aff_2, shape_out)
+        if self.return_feat:
+            out["feat_1"], out["feat_2"] = feat_1, feat_2
+        return out
+
+
+class HyperVxmJoint(nn.Module):
+    """Joint affine and deformable registration at half resolution.
+
+    The affine stage (``affine``) is a ``VxmAffineFeatureDetector`` on the
+    pair downsampled by 2. The deformable stage is an encoder-decoder of
+    ``HyperConv``s (``def_enc_*``, ``def_dec_*``, ``def_add_*``,
+    ``def_flow``: one set, run in both directions) whose kernels the
+    embedding of ``hyp`` by ``hyp_dense_*`` (ReLU Dense layers, float32)
+    generates, on the affinely aligned half-resolution pair. Its two SVFs
+    are symmetrised, ``svf_1 = (svf_12 - svf_21) / 2`` and
+    ``svf_2 = -svf_1``, and integrated by ``int_steps`` squarings
+    (``ops.warp.integrate_vec_batched``: the tiered warp's kernels on the
+    card; ``int_steps=0`` keeps the SVFs). The total transforms map
+    zero-based indices of the full-resolution inputs, to a full-resolution
+    output (or half with ``return_trans_to_half_res``).
+
+    ``forward(hyp, full_1, full_2)`` takes ``hyp`` ``(B, 1)`` and
+    single-channel images ``(B, *in_shape, 1)``; it returns ``svf_1``,
+    ``svf_2``, ``def_1``, ``def_2``, ``aff_1``, ``aff_2`` (full to half
+    resolution), ``tot_1`` and ``tot_2``, and with ``return_moved``
+    ``moved_1`` and ``moved_2`` (zero fill). ``mid_space`` registers both
+    images to their affine mid-space; ``skip_affine`` drops the affine
+    stage. The constructor takes the JAX module's fields; ``generator``
+    draws the initial weights, on its device.
+    """
+
+    def __init__(self, in_shape: Sequence[int], hyp_units=(32, 32, 32, 32),
+                 enc_nf=(256, 256, 256, 256), dec_nf=(256, 256, 256, 256),
+                 add_nf=(256, 256, 256, 256), per_level: int = 1, int_steps: int = 7,
+                 bidir: bool = False, skip_affine: bool = False, mid_space: bool = False,
+                 return_trans_to_half_res: bool = False, return_moved: bool = False,
+                 aff_num_feat: int = 64, aff_enc_nf=(256, 256, 256, 256),
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dtype = _DTYPES.get(dtype, dtype)
+        self.config = dict(
+            in_shape=tuple(in_shape), hyp_units=tuple(hyp_units), enc_nf=tuple(enc_nf),
+            dec_nf=tuple(dec_nf), add_nf=tuple(add_nf), per_level=per_level,
+            int_steps=int_steps, bidir=bidir, skip_affine=skip_affine, mid_space=mid_space,
+            return_trans_to_half_res=return_trans_to_half_res, return_moved=return_moved,
+            aff_num_feat=aff_num_feat, aff_enc_nf=tuple(aff_enc_nf), dtype=dtype)
+        for key, val in self.config.items():
+            setattr(self, key, val)
+        nd = len(self.in_shape)
+        self.affine = VxmAffineFeatureDetector(
+            tuple(s // 2 for s in self.in_shape), num_feat=aff_num_feat, enc_nf=aff_enc_nf,
+            half_res=False, make_dense=False, bidir=True,
+            return_trans_to_mid_space=mid_space, dtype=dtype, generator=generator)
+        with _init_device(generator):
+            units = 1
+            for i, n in enumerate(self.hyp_units):
+                layer = nn.Linear(units, n)
+                lecun_normal_(layer.weight, generator)
+                nn.init.zeros_(layer.bias)
+                self.add_module(f"hyp_dense_{i}", layer)
+                units = n
+
+            def hyper_conv(name, cin, n):
+                self.add_module(name, HyperConv(cin, n, nd, units, dtype, generator))
+                return n
+
+            ch, skips = 2, [2]
+            for li, n in enumerate(self.enc_nf):
+                for ci in range(per_level):
+                    ch = hyper_conv(f"def_enc_{li}_{ci}", ch, n)
+                skips.append(ch)
+            for li, n in enumerate(self.dec_nf):
+                for ci in range(per_level):
+                    ch = hyper_conv(f"def_dec_{li}_{ci}", ch, n)
+                ch += skips.pop()
+            for li, n in enumerate(self.add_nf):
+                ch = hyper_conv(f"def_add_{li}", ch, n)
+            hyper_conv("def_flow", ch, nd)
+
+    def _def_net(self, x1: torch.Tensor, x2: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The deformable stage's SVF ``(B, *S, N)`` in float32 from
+        channels-last images ``(B, *S, 1)`` and the embedding ``h``."""
+        nd = len(self.in_shape)
+        x = torch.cat([x1, x2], dim=-1).movedim(-1, 1)
+        enc = [x]
+        for li in range(len(self.enc_nf)):
+            for ci in range(self.per_level):
+                x = leaky_relu(getattr(self, f"def_enc_{li}_{ci}")(x, h), 0.2)
+            enc.append(x)
+            x = getattr(F, f"max_pool{nd}d")(x, 2, 2)
+        for li in range(len(self.dec_nf)):
+            for ci in range(self.per_level):
+                x = leaky_relu(getattr(self, f"def_dec_{li}_{ci}")(x, h), 0.2)
+            x = torch.cat([_upsample_nearest(x, 2, nd), enc.pop()], dim=1)
+        for li in range(len(self.add_nf)):
+            x = leaky_relu(getattr(self, f"def_add_{li}")(x, h), 0.2)
+        return self.def_flow(x, h).float().movedim(1, -1)
+
+    def forward(self, hyp: torch.Tensor, full_1: torch.Tensor, full_2: torch.Tensor) -> dict:
+        shape_full = tuple(self.in_shape)
+        shape_half = tuple(s // 2 for s in shape_full)
+        nd = len(shape_full)
+        device = full_1.device
+        batch = full_1.shape[0]
+
+        def rep(m):
+            return m[None].expand(batch, *m.shape)
+
+        scale2 = rep(_scale_matrix(2.0, nd, device))
+        ima_1, ima_2 = _warp_to(full_1, scale2, shape_half), _warp_to(full_2, scale2, shape_half)
+        if self.skip_affine:
+            # the affine stage's output would be dropped: it is not run
+            aff_1 = aff_2 = scale2
+            mov_1, mov_2 = ima_1, ima_2
+        else:
+            # the affine stage at half resolution, then full -> half resolution
+            aff = self.affine(ima_1, ima_2)
+            aff_1, aff_2 = _compose(scale2, aff["aff_1"]), _compose(scale2, aff["aff_2"])
+            mov_1 = _warp_to(full_1, aff_1, shape_half)
+            mov_2 = _warp_to(full_2, aff_2, shape_half) if self.mid_space else ima_2
+
+        h = hyp.float()
+        for i in range(len(self.hyp_units)):
+            h = F.relu(getattr(self, f"hyp_dense_{i}")(h))
+
+        svf_1 = self._def_net(mov_1, mov_2, h)
+        svf_2 = self._def_net(mov_2, mov_1, h)
+        svf_1 = 0.5 * (svf_1 - svf_2)
+        svf_2 = -svf_1
+        if self.int_steps > 0:
+            def_1 = warp_ops.integrate_vec_batched(svf_1, nb_steps=self.int_steps)
+            def_2 = warp_ops.integrate_vec_batched(svf_2, nb_steps=self.int_steps)
+        else:
+            def_1, def_2 = svf_1, svf_2
+
+        # total transforms: full-resolution input -> half-resolution output
+        if self.mid_space and not self.skip_affine:
+            scale_half = rep(_scale_matrix(0.5, nd, device))
+            tot_1 = _compose(aff_1, def_1, scale_half, aff_1)
+            tot_2 = _compose(aff_2, def_2, scale_half, aff_2)
+        else:
+            tot_1, tot_2 = _compose(aff_1, def_1), _compose(aff_2, def_2)
+        out = {"svf_1": svf_1, "svf_2": svf_2, "def_1": def_1, "def_2": def_2,
+               "aff_1": aff_1, "aff_2": aff_2}
+        if not self.return_trans_to_half_res:
+            # composed with the half -> full upsampling on the right
+            up = affine_ops.affine_to_dense_shift(_scale_matrix(0.5, nd, device), shape_full,
+                                                  shift_center=False)
+            tot_1, tot_2 = _compose(tot_1, rep(up)), _compose(tot_2, rep(up))
+        out["tot_1"], out["tot_2"] = tot_1, tot_2
+        if self.return_moved:
+            out["moved_1"] = _warp_to(full_1, tot_1)
+            out["moved_2"] = _warp_to(full_2, tot_2)
+        return out

@@ -43,8 +43,11 @@ def make_square_affine(mat: torch.Tensor) -> torch.Tensor:
     validate_affine_shape(mat.shape)
     if mat.shape[-2] == mat.shape[-1]:
         return mat
-    row = mat.new_zeros((*mat.shape[:-2], 1, mat.shape[-1]))
-    row[..., 0, -1] = 1.0
+    # made by fills: writing the 1 into one element would copy it from the
+    # host, which waits for the device
+    lead = mat.shape[:-2]
+    row = torch.cat([mat.new_zeros((*lead, 1, mat.shape[-1] - 1)),
+                     mat.new_ones((*lead, 1, 1))], dim=-1)
     return torch.cat([mat, row], dim=-2)
 
 
@@ -61,9 +64,18 @@ def affine_remove_identity(mat: torch.Tensor) -> torch.Tensor:
     return mat - _eye_rows(mat)
 
 
+def _inv(mat: torch.Tensor) -> torch.Tensor:
+    """The inverse of square matrices, non-finite where one is singular (as
+    ``jnp.linalg.inv``): ``inv_ex`` with its error flag unread, so that it
+    neither raises nor waits for the device."""
+    return torch.linalg.inv_ex(mat).inverse
+
+
 def invert_affine(mat: torch.Tensor) -> torch.Tensor:
+    """The inverse affine, ``(..., M, N+1)``; non-finite where ``mat`` is
+    singular."""
     rows = mat.shape[-2]
-    return torch.linalg.inv(make_square_affine(mat))[..., :rows, :]
+    return _inv(make_square_affine(mat))[..., :rows, :]
 
 
 def rescale_affine(mat: torch.Tensor, factor) -> torch.Tensor:
@@ -252,13 +264,13 @@ def affine_matrix_to_params(mat, deg: bool = True) -> torch.Tensor:
     scale = torch.diagonal(lower, dim1=-2, dim2=-1)
     scale0 = scale[..., 0] * torch.sign(torch.linalg.det(lin))
     scale = torch.cat([scale0[..., None], scale[..., 1:]], dim=-1)
-    upper = torch.linalg.inv(torch.diag_embed(scale)) @ lower.transpose(-1, -2)
+    upper = _inv(torch.diag_embed(scale)) @ lower.transpose(-1, -2)
     upper_flat = upper.reshape(*scale0.shape, num_dim * num_dim)
     shear = upper_flat[..., [1] if num_dim == 2 else [1, 2, 5]]
     zeros = mat.new_zeros((*scale0.shape, (num_dim - 1) * 3))
     strip_mat = params_to_affine_matrix(torch.cat([zeros, scale, shear], dim=-1),
                                         ndims=num_dim)[..., :-1]
-    rot = rotation_matrix_to_angles(lin @ torch.linalg.inv(strip_mat), deg=deg)
+    rot = rotation_matrix_to_angles(lin @ _inv(strip_mat), deg=deg)
     return torch.cat([shift, rot, scale, shear], dim=-1)
 
 
@@ -266,7 +278,9 @@ def fit_affine(x_source: torch.Tensor, x_target: torch.Tensor,
                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (weighted) least-squares affine ``(..., N, N+1)`` between point
     sets ``(..., M, N)``: ``x_source ~ mat[..., :-1] @ x_target^T +
-    mat[..., -1:]`` (source coordinates in the target's space)."""
+    mat[..., -1:]`` (source coordinates in the target's space). Where the
+    normal matrix is singular (fewer than N + 1 points in general position)
+    the matrix is non-finite, as in the JAX package."""
     ones = x_target.new_ones((*x_target.shape[:-1], 1))
     x = torch.cat([x_target, ones], dim=-1)
     x_t = x.transpose(-1, -2)
@@ -274,5 +288,5 @@ def fit_affine(x_source: torch.Tensor, x_target: torch.Tensor,
         if weights.dim() == x.dim():
             weights = weights[..., 0]
         x_t = x_t * weights[..., None, :]
-    beta = torch.linalg.inv(x_t @ x) @ x_t @ x_source
+    beta = _inv(x_t @ x) @ x_t @ x_source
     return beta.transpose(-1, -2)

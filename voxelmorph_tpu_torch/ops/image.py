@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .affine import _inv
 from .interp import resize
 
 __all__ = ["gaussian_blur", "draw_multiscale_noise", "multiscale_noise_draws",
@@ -120,9 +121,10 @@ def barycenter(feat: torch.Tensor, normalize: bool = True,
 def sqrtm(mat: torch.Tensor, iters: int = 20) -> torch.Tensor:
     """The principal square root of ``(..., M, M)`` matrices by ``iters``
     Denman-Beavers iterations (matrices with no eigenvalue on the closed
-    negative real axis)."""
+    negative real axis); non-finite where an iterate is singular, as in
+    the JAX package (``ops.affine._inv``)."""
     y = mat
     z = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device).expand(mat.shape)
     for _ in range(iters):
-        y, z = 0.5 * (y + torch.linalg.inv(z)), 0.5 * (z + torch.linalg.inv(y))
+        y, z = 0.5 * (y + _inv(z)), 0.5 * (z + _inv(y))
     return y

@@ -230,8 +230,8 @@ def interpn(vol: torch.Tensor, loc: torch.Tensor, interp_method: str = "linear",
     if fill_value is not None:
         valid = functools.reduce(torch.logical_and, [
             (l >= 0) & (l <= m) for l, m in zip(loc_dims, max_loc)])
-        out = torch.where(valid[:, None], out,
-                          torch.as_tensor(fill_value, dtype=out.dtype, device=out.device))
+        # the fill made on the device (a copy from the host would wait for it)
+        out = torch.where(valid[:, None], out, out.new_full((), fill_value))
 
     out = out.reshape(*out_shape, nch)
     return out[..., 0] if squeeze_channel else out

@@ -1,1 +1,4 @@
-"""Host-side numpy utilities: volume file IO."""
+"""Host-side numpy utilities: volume file IO, segmentation and surface
+helpers."""
+
+from . import io, ndimage, utils

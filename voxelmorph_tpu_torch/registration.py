@@ -2,9 +2,11 @@
 
 Counterpart of ``voxelmorph_tpu/registration.py`` for VxmDense models, the
 VxmDense inside a semi-supervised (segmentation or point-cloud) or a
-SynthMorph checkpoint, and HyperMorph's ``HyperVxmDense``, which takes its
+SynthMorph checkpoint, HyperMorph's ``HyperVxmDense``, which takes its
 hyperparameter as a third input (``hyper``, baked into the function that
-``build_register_fn`` returns).
+``build_register_fn`` returns), and SynthMorph's joint affine and deformable
+``HyperVxmJoint`` (``build_joint_register_fn``), whose transform acts on
+zero-based indices.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from .models.vxm import (VxmDense, VxmDenseSemiSupervisedPointCloud, VxmDenseSem
 from .ops import warp as warp_ops
 
 __all__ = ["enable_fast_warp", "resolve_registration_model", "build_register_fn",
-           "build_register_seg_fn", "build_eval_register_fn", "register_pair"]
+           "build_register_seg_fn", "build_joint_register_fn", "build_eval_register_fn",
+           "register_pair"]
 
 
 def _rebuilt(model, **config):
@@ -40,8 +43,9 @@ def enable_fast_warp(model, phases: int = 2, halo: int = 2):
     image is 2^phases bounded warps (the CUDA kernel) by the integration
     root instead of one full-resolution gather, falling back to the exact
     gather when the root exceeds ``halo`` (``ops.warp.phase_warp_batched``).
-    A VxmDense without integration, and any other model (a HyperVxmDense,
-    as in the JAX package, has no such field), passes through unchanged."""
+    A VxmDense without integration, and any other model (a HyperVxmDense or
+    a HyperVxmJoint, as in the JAX package, has no such field), passes
+    through unchanged."""
     if isinstance(model, VxmDense) and model.int_steps > 0:
         return _rebuilt(model, fast_warp_phases=phases, fast_warp_halo=halo)
     return model
@@ -53,19 +57,19 @@ def resolve_registration_model(model, inshape: Optional[Sequence[int]] = None):
     A semi-supervised segmentation or point-cloud model registers through
     its inner VxmDense (``models.vxm.registration_model``), a SynthMorphDense
     through its own (``models.synthmorph.registration_model``: it trains on
-    synthesized images and is deployed on acquired ones); a VxmDense or a
-    HyperVxmDense registers directly. Both are fully convolutional:
-    ``inshape`` only sizes the svf and integration rescale grids, so a
-    checkpoint trained at one resolution serves another with the same
-    weights.
+    synthesized images and is deployed on acquired ones); every other model
+    (a VxmDense, a HyperVxmDense, a HyperVxmJoint) registers directly and
+    passes through. ``inshape`` re-targets a VxmDense or a HyperVxmDense,
+    which are fully convolutional: it only sizes the svf and integration
+    rescale grids, so a checkpoint trained at one resolution serves another
+    with the same weights.
     """
     if isinstance(model, (VxmDenseSemiSupervisedSeg, VxmDenseSemiSupervisedPointCloud)):
         model = registration_model(model)[0]
     elif isinstance(model, synthmorph.SynthMorphDense):
         model = synthmorph.registration_model(model)[0]
-    if not isinstance(model, (VxmDense, HyperVxmDense)):
-        raise NotImplementedError(f"{type(model).__name__} is not ported yet")
-    if inshape is not None and tuple(model.inshape) != tuple(inshape):
+    if (inshape is not None and isinstance(model, (VxmDense, HyperVxmDense))
+            and tuple(model.inshape) != tuple(inshape)):
         model = _rebuilt(model, inshape=tuple(inshape)).eval()
     return model
 
@@ -109,20 +113,55 @@ def build_register_seg_fn(model, hyper: float = 0.5) -> Callable[
     return register
 
 
+def build_joint_register_fn(model) -> Callable[
+        [torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """Return fn(hyp, moving, fixed) -> (moved, warp) for a HyperVxmJoint:
+    ``hyp`` ``(B, 1)`` is the regularisation weight its deformable stage was
+    amortised over, ``warp`` its total transform ``tot_1``, and the moved
+    image that transform applied with zero fill on zero-based indices."""
+
+    @torch.inference_mode()
+    def register(hyp: torch.Tensor, moving: torch.Tensor, fixed: torch.Tensor):
+        warp = model(hyp, moving, fixed)["tot_1"]
+        return synthmorph._warp_to(moving, warp), warp
+
+    return register
+
+
+def _joint_hyp(moving: torch.Tensor, hyper: float) -> torch.Tensor:
+    """A HyperVxmJoint's ``hyp`` ``(B, 1)`` filled with ``hyper``, made on
+    the device."""
+    return torch.full((moving.shape[0], 1), float(hyper), device=moving.device)
+
+
 def build_eval_register_fn(model, hyper: float = 0.5) -> Callable[
         [torch.Tensor, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, ...]]:
     """The evaluation entry for any registration model: fn(moving, fixed,
     moving_seg) -> (moved, warp, moved_seg), ``build_register_seg_fn`` with
-    ``hyper``. SynthMorph's HyperVxmJoint is not ported and raises."""
-    if type(model).__name__ == "HyperVxmJoint":
-        raise NotImplementedError("HyperVxmJoint is not ported yet")
-    return build_register_seg_fn(model, hyper=hyper)
+    ``hyper``; for a HyperVxmJoint, its ``tot_1`` with ``hyp`` filled with
+    ``hyper``, the image warped linear and the segmentation nearest, both
+    with zero fill on zero-based indices."""
+    if not isinstance(model, synthmorph.HyperVxmJoint):
+        return build_register_seg_fn(model, hyper=hyper)
+
+    @torch.inference_mode()
+    def register(moving: torch.Tensor, fixed: torch.Tensor, moving_seg: torch.Tensor):
+        warp = model(_joint_hyp(moving, hyper), moving, fixed)["tot_1"]
+        return (synthmorph._warp_to(moving, warp), warp,
+                synthmorph._warp_to(moving_seg, warp, interp_method="nearest"))
+
+    return register
 
 
 def register_pair(model, moving, fixed, hyper: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
-    """One-shot registration of numpy arrays ``(B, *S, C)``: (moved, warp)."""
+    """One-shot registration of numpy arrays ``(B, *S, C)``: (moved, warp);
+    a HyperVxmJoint takes ``hyper`` as its ``hyp`` (``scripts/register.py``'s
+    joint branch)."""
     device = next(model.parameters()).device
     mv = torch.as_tensor(np.asarray(moving, np.float32), device=device)
     fx = torch.as_tensor(np.asarray(fixed, np.float32), device=device)
-    moved, warp = build_register_fn(model, hyper=hyper)(mv, fx)
+    if isinstance(model, synthmorph.HyperVxmJoint):
+        moved, warp = build_joint_register_fn(model)(_joint_hyp(mv, hyper), mv, fx)
+    else:
+        moved, warp = build_register_fn(model, hyper=hyper)(mv, fx)
     return moved.cpu().numpy(), warp.cpu().numpy()

@@ -273,6 +273,8 @@ class Trainer:
         self.global_step = 0
         self.metric_fetches = 0  # host reads of step metrics by fit and fit_cached_pairs
         self.loaded_from = None  # checkpoint path when resumed via load()
+        self._save_thread = None  # the background checkpoint write in flight
+        self._save_error = None  # its failure, raised again at the next join
 
     def init(self):
         """(Re)create the optimizer for the model's current parameters."""
@@ -323,7 +325,8 @@ class Trainer:
             self.init()
         if model_dir:
             os.makedirs(model_dir, exist_ok=True)
-            self.save(os.path.join(model_dir, save_filename.format(epoch=initial_epoch)))
+            self.save(os.path.join(model_dir, save_filename.format(epoch=initial_epoch)),
+                      wait=False)
         last_metrics = {}
         try:
             for epoch in range(initial_epoch, epochs):
@@ -335,7 +338,12 @@ class Trainer:
                        f"{steps_per_epoch / dt:.2f} steps/s] {msg}")
                 logger.log(epoch + 1, last_metrics, dt)
                 if model_dir and ((epoch + 1) % save_freq_epochs == 0 or epoch + 1 == epochs):
-                    self.save(os.path.join(model_dir, save_filename.format(epoch=epoch + 1)))
+                    self.save(os.path.join(model_dir, save_filename.format(epoch=epoch + 1)),
+                              wait=False)
+                elif self._save_error is not None:
+                    # a background write failed since the last save: fail now
+                    self.wait_for_saves()
+            self.wait_for_saves()
         finally:
             logger.close()
         return last_metrics
@@ -466,24 +474,28 @@ class Trainer:
         return self._run_epochs(run_epoch, epochs, steps_per_epoch, initial_epoch, model_dir,
                                 save_freq_epochs, save_filename, log_fn, metrics_csv)
 
-    def _optax_leaves(self) -> Dict[str, np.ndarray]:
+    def _optax_leaves(self, moments: Dict[str, tuple], count: int) -> Dict[str, np.ndarray]:
         """Adam's state as ``optax.adam``'s leaves: the step count, then mu
-        and nu in the flax parameter order, kernels in the JAX layout."""
-        params = dict(self.model.named_parameters())
-        state = self.optimizer.state
-
-        def moments(slot):
-            flat = modelio.params_to_jax({
-                n: state[p][slot] if p in state else torch.zeros_like(p)
-                for n, p in params.items()})
+        and nu in the flax parameter order, kernels in the JAX layout, from
+        ``moments`` (``_adam_state``)."""
+        def slot(i):
+            flat = modelio.params_to_jax({n: m[i] for n, m in moments.items()})
             return [flat[k] for k in _optax_order(flat)]
 
+        leaves = [np.asarray(count, np.int32), *slot(0), *slot(1)]
+        return {f"{i:05d}": leaf for i, leaf in enumerate(leaves)}
+
+    def _adam_state(self):
+        """Adam's moments ``{name: (exp_avg, exp_avg_sq)}`` (zeros for a
+        parameter it has not stepped) and its step count."""
+        state = self.optimizer.state
+        moments = {n: (state[p]["exp_avg"], state[p]["exp_avg_sq"]) if p in state
+                   else (torch.zeros_like(p), torch.zeros_like(p))
+                   for n, p in self.model.named_parameters()}
         steps = {float(s["step"]) for s in state.values()}
         if len(steps) > 1:
             raise ValueError(f"Adam's parameters are at different steps {sorted(steps)}")
-        count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
-        leaves = [count, *moments("exp_avg"), *moments("exp_avg_sq")]
-        return {f"{i:05d}": leaf for i, leaf in enumerate(leaves)}
+        return moments, int(steps.pop()) if steps else 0
 
     def _load_optax_leaves(self, leaves: Dict[str, np.ndarray]) -> None:
         """Set Adam's state from optax's leaves; raise if they do not map
@@ -514,26 +526,71 @@ class Trainer:
                        for i, name in enumerate(params)}
         self.optimizer.load_state_dict(sd)
 
-    def save(self, path: str):
+    def save(self, path: str, wait: bool = True):
         """Write a checkpoint in the JAX package's format: the model's config
         and params, its mutable state (MeanStream's buffers, the JAX
         Trainer's ``state`` tree), Adam's state as optax's leaves and the
         step as the JAX Trainer writes them (which its ``load`` restores),
         and the sampling generator's state under a key that the JAX package
-        ignores."""
+        ignores.
+
+        With ``wait=False`` the copy to the host and the file write run in a
+        background thread, so that training goes on. The next step changes
+        the parameters and Adam's moments in place, so they are copied on
+        their device first (before this returns); the file is the one
+        ``wait=True`` writes at this step. At most one write is in flight (a
+        new save joins the last), and a failed write is raised again at the
+        next join (``wait_for_saves``)."""
+        self.wait_for_saves()
+        with torch.no_grad():
+            tensors = dict(self.model.named_parameters())
+            tensors.update(self.model.named_buffers())
+            adam = self._adam_state() if self.optimizer is not None else None
+            if not wait:
+                tensors = {n: t.detach().clone() for n, t in tensors.items()}
+                if adam is not None:
+                    adam = ({n: tuple(t.clone() for t in m) for n, m in adam[0].items()},
+                            adam[1])
         extra = {_TRAIN: {"step": np.asarray(self.global_step, np.int64),
                           # the JAX Trainer's PRNGKey(seed)
                           "base_rng": np.asarray([0, self.seed & 0xFFFFFFFF], np.uint32)},
                  _TORCH_TRAIN: {"generator": self.generator.get_state().numpy()}}
-        if self.optimizer is not None:
-            extra[_OPT] = self._optax_leaves()
-        modelio.save_model(path, self.model, extra_trees=extra)
+
+        def write():
+            if adam is not None:
+                extra[_OPT] = self._optax_leaves(*adam)
+            modelio.save_model(path, self.model, extra_trees=extra, tensors=tensors)
+
+        if wait:
+            write()
+            return
+
+        def guarded():
+            try:
+                write()
+            except Exception as e:  # raised again at the next join
+                self._save_error = e
+
+        self._save_thread = threading.Thread(target=guarded, name="trainer-save")
+        self._save_thread.start()
+
+    def wait_for_saves(self):
+        """Block until the background checkpoint write, if any, is done;
+        raise ``RuntimeError("async checkpoint write failed")`` from its
+        error if it failed, rather than train on with a stale checkpoint."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise RuntimeError("async checkpoint write failed") from err
 
     def load(self, path: str):
         """Restore the params and, where the checkpoint has them, the model's
         state (zero where it has none), Adam's state, the step and the
         sampling generator's state, from a checkpoint of either package.
         Raises if its optimizer state cannot be mapped."""
+        self.wait_for_saves()
         _, _, flat, extra = modelio.read_checkpoint(path, with_extra=True)
         if any(k.startswith("torch_opt||") for k in extra):
             raise ValueError(f"{path} holds Adam's state under torch_opt||, a layout that "
