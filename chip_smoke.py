@@ -219,7 +219,22 @@ Phases:
   13c-d. a narrow HyperVxmJoint at 160x192x224 on the card against the
      CPU in float32 (the pair's faces masked to zero), then saved and
      served by cli/register --hyper 0.3 and cli/test on the labelled pair,
-     whose Dice must be build_eval_register_fn's.
+     whose Dice must be build_eval_register_fn's;
+  14a. data parallelism over one rank: the Trainer over an NCCL process
+     group of world size 1 (a file:// store; the mesh 1x1, no wrapper) takes
+     phase 4's recipe (float32, TF32 off, seed 0, bs1) for 3 steps that
+     must be bit-equal to those of the Trainer without a process group on
+     the same batches (cudnn.deterministic), each step's work counters
+     gated; then a step under set_sync_debug_mode("error") and two in
+     conv-kernel mode (32 conv launches a step); s per step beside the plain
+     Trainer's and phase 4's, peak memory;
+  14b. two processes on the one card over gloo (chip_smoke.py --dp-rank R
+     --dp-dir DIR, one row each of a global batch of 2, the Trainer's
+     DistributedDataParallel averaging the gradients) against one process at
+     batch 2 on the card: the loss, the gradients within DP_GRAD_RTOL of
+     each tensor's max, the updated params within rtol 1e-4, atol 1e-6
+     (JAX's DP-vs-single bound) wherever the two runs' gradients agree in
+     sign, and the two ranks' params bit-equal.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -1371,7 +1386,7 @@ def train_full_width(profile):
         profile_device("train step", lambda: trainer.train_step(
             (moving, fixed), (fixed, zero))["loss"].item(), rows=30)
         conv_library_times(trainer.model)
-    return train_launches, redrawn_launches
+    return train_launches, redrawn_launches, median_s
 
 
 def train_checkpoint_recipe():
@@ -4594,6 +4609,215 @@ def joint_vs_cpu_and_clis(smi, conditioning=False):
 
 
 
+# data parallelism (phase 14): the steps of each run, the tolerance of the
+# two-process step against one process at batch 2 (JAX's own DP-vs-single
+# bound, tests/test_sharding.py: rtol 1e-4, atol 1e-6 on the updated params;
+# the gradients within DP_GRAD_RTOL of each tensor's largest magnitude), and
+# how long the spawned ranks may take
+DP_STEPS = 3
+DP_RTOL, DP_ATOL = 1e-4, 1e-6
+DP_GRAD_RTOL = 1e-4
+DP_RANK_TIMEOUT_S = 300
+
+
+def dp_batch(moving, fixed, batch):
+    """Phase 4's recipe's inputs and targets at ``batch``: the pair, then
+    the pair swapped."""
+    pairs = [(moving, fixed), (fixed, moving)][:batch]
+    src = torch.cat([p[0] for p in pairs])
+    trg = torch.cat([p[1] for p in pairs])
+    return (src, trg), (trg, torch.zeros((batch, *INSHAPE, 3), device=moving.device))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def timed_steps(trainer, inputs, targets, steps, label):
+    """``steps`` train steps, each timed to its loss's read and its work
+    counters gated; returns the losses, seconds and launches of each."""
+    losses_, step_s, counts = [], [], []
+    for step in range(steps):
+        reset_launches()
+        t0 = time.perf_counter()
+        losses_.append(trainer.train_step(inputs, targets)["loss"].item())  # synchronises
+        step_s.append(time.perf_counter() - t0)
+        counts.append(read_launches())
+        check_warp_work(counts[-1], f"{label}, step {step}")
+    return losses_, step_s, counts
+
+
+def dp_one_rank(smi, phase4_s):
+    """Phase 14a: the Trainer over an NCCL process group of one rank
+    (file:// store), phase 4's recipe at full width: DP_STEPS steps bit-equal
+    to the Trainer without a process group on the same batches
+    (cudnn.deterministic), a step under set_sync_debug_mode("error"), and a
+    conv-kernel step. Returns the launch counts of a step and the times."""
+    import torch.distributed as dist
+    from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    inputs, targets = dp_batch(moving, fixed, 1)
+    runs = {}
+    with deterministic_cudnn(), tempfile.TemporaryDirectory() as tmp:
+        model, terms = default_recipe(INSHAPE)
+        trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+        runs["plain"] = timed_steps(trainer, inputs, targets, DP_STEPS, "14a, no process group")
+        plain = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del trainer, model
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            model, terms = default_recipe(INSHAPE)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda",
+                              mesh=mesh_lib.make_mesh_for_batch(1))
+            torch.cuda.reset_peak_memory_stats()
+            runs["mesh"] = timed_steps(trainer, inputs, targets, DP_STEPS, "14a, one NCCL rank")
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            equal = all(torch.equal(plain[n], p) for n, p in model.named_parameters())
+            torch.cuda.synchronize()
+            reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics = trainer.train_step(inputs, targets)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            sync_free = read_launches()
+            check_warp_work(sync_free, "14a, the sync-free step")
+            loss = metrics["loss"].item()
+            with conv_kernel_mode(True):
+                conv = timed_steps(trainer, inputs, targets, 2, "14a, conv kernel")
+            world = (dist.get_backend(), dist.get_world_size(), dict(trainer.mesh.shape),
+                     trainer.ddp is None)
+        finally:
+            dist.destroy_process_group()
+    mesh_s = float(np.median(runs["mesh"][1][1:]))
+    plain_s = float(np.median(runs["plain"][1][1:]))
+    log(f"14a: {world[0]} world of {world[1]}, mesh {world[2]}, no DDP wrapper {world[3]}; "
+        f"losses {runs['mesh'][0]} against {runs['plain'][0]} without a process group: "
+        f"params after {DP_STEPS} steps bit-equal {equal} (cudnn.deterministic)")
+    log(f"14a: float32 step, bs1, {INSHAPE}: {mesh_s:.4f} s/step over one NCCL rank, "
+        f"{plain_s:.4f} without a process group (both cudnn.deterministic; median after the "
+        f"first), phase 4's {phase4_s:.4f}; peak memory allocated {peak_gb:.3f} GiB; "
+        f"the sync-free step's loss {loss:.8f}, launches {sync_free}; conv kernel steps "
+        + ", ".join(f"{x:.4f}" for x in conv[1]) + f" s, launches {conv[2][-1]}; {smi}")
+    if not equal:
+        raise AssertionError("14a: the steps over one NCCL rank differ from the plain Trainer's")
+    if not (world[1] == 1 and world[2] == {"data": 1, "space": 1} and world[3]):
+        raise AssertionError(f"14a: the world, mesh or wrapper is not one rank's: {world}")
+    if any(c["conv"] != TRAIN_STEP_CONVS or c["layout_copies"] for c in conv[2]):
+        raise AssertionError(f"14a: a conv-kernel step missed a kernel: {conv[2]}")
+    if not all(np.isfinite(runs["mesh"][0] + conv[0] + [loss])):
+        raise AssertionError("14a: a non-finite loss")
+    return dict(launches=runs["mesh"][2][-1], conv_launches=conv[2][-1], s_per_step=mesh_s,
+                plain_s_per_step=plain_s, conv_s_per_step=conv[1][-1], peak_gib=peak_gb)
+
+
+def dp_rank(rank, tmp):
+    """A rank of phase 14b (``chip_smoke.py --dp-rank R --dp-dir DIR``): one
+    step of phase 4's recipe on its row of a global batch of 2, the two
+    processes sharing the one card over gloo, the gradients averaged by the
+    Trainer's DistributedDataParallel; writes its params, gradients, loss
+    and launches to DIR/rank{R}.pt."""
+    import torch.distributed as dist
+    from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_lib.initialize_distributed(f"file://{tmp}/store", 2, rank, "cpu")
+    try:
+        with deterministic_cudnn():
+            moving, fixed = smooth_pair(INSHAPE, "cuda")
+            model, terms = default_recipe(INSHAPE)
+            trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+            reset_launches()
+            loss = trainer.train_step(*dp_batch(moving, fixed, 2))["loss"].item()
+            counts = read_launches()
+        torch.save(dict(loss=loss, launches=counts, mesh=dict(trainer.mesh.shape),
+                        ddp=type(trainer.ddp).__name__, backend=dist.get_backend(),
+                        params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()}),
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks(smi):
+    """Phase 14b: two processes on the one card over gloo (a global batch of
+    2, a row each) against one process at batch 2 on the card: the loss,
+    the averaged gradients and the updated params, and the two ranks'
+    params equal. Returns rank 0's launches."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                                   str(r), "--dp-dir", tmp], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=DP_RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"14b: rank {r} exited with {p.returncode}:\n{out}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    with deterministic_cudnn():
+        moving, fixed = smooth_pair(INSHAPE, "cuda")
+        model, terms = default_recipe(INSHAPE)
+        trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+        start = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        loss = trainer.train_step(*dp_batch(moving, fixed, 2))["loss"].item()
+        ref = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        ref_grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        del trainer, model
+    two = got[0]
+    replicas = all(torch.equal(two["params"][n], got[1]["params"][n]) for n in ref)
+    grad_rel = max(((two["grads"][n] - g).abs().max() / g.abs().max()).item()
+                   for n, g in ref_grads.items())
+    # Adam's first step moves each parameter by lr * sign(gradient): an
+    # element whose gradient is within the runs' gap of zero may step
+    # either way
+    outside, undetermined, worst = 0, 0, 0.0
+    for n, p in ref.items():
+        share = (two["params"][n] - p).abs() / (DP_ATOL + DP_RTOL * p.abs())
+        gap = (two["grads"][n] - ref_grads[n]).abs().max()
+        free = (torch.sign(two["grads"][n]) != torch.sign(ref_grads[n])) & (
+            ref_grads[n].abs() <= gap)
+        outside += int((share > 1).sum())
+        undetermined += int(((share > 1) & free).sum())
+        worst = max(worst, share.masked_fill(free, 0).max().item())
+    moved = max((ref[n] - start[n]).abs().max().item() for n in ref)
+    log(f"14b: two processes on one card ({two['backend']}, {two['ddp']}, mesh {two['mesh']}), "
+        f"{ranks_s:.2f} s for both to start, step and write; loss {two['loss']:.8f} against "
+        f"{loss:.8f} in one process at batch 2; gradients within {grad_rel:.3e} of each "
+        f"tensor's max (tol {DP_GRAD_RTOL}); updated params: {outside} elements outside rtol "
+        f"{DP_RTOL}, atol {DP_ATOL}, of which {undetermined} have gradients of opposite sign "
+        f"within the runs' gap of zero; the rest at {worst:.3f} of the tolerance; the step "
+        f"moved the params by up to {moved:.3e}; the ranks' params bit-equal {replicas}; "
+        f"rank 0's launches {two['launches']}; {smi}")
+    if two["mesh"] != {"data": 2, "space": 1} or two["ddp"] != "DistributedDataParallel":
+        raise AssertionError(f"14b: not a two-way data-parallel step: {two['mesh']}")
+    if not (abs(two["loss"] - loss) <= 1e-5 * abs(loss) and grad_rel <= DP_GRAD_RTOL):
+        raise AssertionError("14b: the two-process step's loss or gradients differ")
+    if outside != undetermined or not replicas or moved < 10 * DP_ATOL:
+        raise AssertionError("14b: the updated params differ from one process's")
+    check_warp_work(two["launches"], "14b, rank 0's step")
+    return dict(launches=two["launches"], grad_rel=grad_rel, outside=outside,
+                undetermined=undetermined, seconds=ranks_s)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4616,10 +4840,15 @@ def main(argv=None) -> int:
                              "steps at the default halo differ (SYNTH_DISPATCH_HALO), and "
                              "how far it moves 13c's joint model on the card, with the "
                              "pair's faces masked and not (JOINT_EDGE)")
+    parser.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-dir", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
+    if args.dp_rank is not None:  # a rank that phase 14b started
+        dp_rank(args.dp_rank, args.dp_dir)
+        return 0
     # the serving path's own halo rule and conv dispatch, whatever the
     # environment says
     for name in ("VXM_WINDOW_HALO", "VXM_PALLAS_CONV", "VXM_XLA_DW_EINSUM"):
@@ -4706,7 +4935,7 @@ def main(argv=None) -> int:
     log(f"phase 3c: {time.perf_counter() - t:.2f} s")
 
     t = phase("4. VxmDense training at full width")
-    train_launches, redrawn_launches = train_full_width(args.profile)
+    train_launches, redrawn_launches, phase4_s = train_full_width(args.profile)
     train_checkpoint_recipe()
     log(f"phase 4: {time.perf_counter() - t:.2f} s")
 
@@ -4805,6 +5034,15 @@ def main(argv=None) -> int:
     log(f"phase 13c-d: {time.perf_counter() - t:.2f} s; phase 13: "
         f"{time.perf_counter() - t13:.2f} s")
 
+    t14 = t = phase("14a. the Trainer over one NCCL rank at full width")
+    dp_one = dp_one_rank(smi, phase4_s)
+    log(f"phase 14a: {time.perf_counter() - t:.2f} s")
+
+    t = phase("14b. two processes on the one card over gloo")
+    dp_two = dp_two_ranks(smi)
+    log(f"phase 14b: {time.perf_counter() - t:.2f} s; phase 14: "
+        f"{time.perf_counter() - t14:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -4834,7 +5072,12 @@ def main(argv=None) -> int:
              # (maps padded to INSHAPE)
              "train_step_synthmorph_cached_dispatch": synth_cli["launches"],
              # one float32 register call of the full-width joint model
-             "register_joint": joint["launches"]}
+             "register_joint": joint["launches"],
+             # a step of the Trainer over one NCCL rank, cuDNN and conv-kernel
+             # mode, and rank 0's step of two processes over gloo
+             "train_step_data_parallel": dp_one["launches"],
+             "train_step_data_parallel_conv": dp_one["conv_launches"],
+             "train_step_data_parallel_two_ranks": dp_two["launches"]}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -4928,6 +5171,9 @@ def main(argv=None) -> int:
             clis={k: v for k, v in synth_cli.items() if k != "launches"}),
         joint=dict(full_width={k: v for k, v in joint.items() if k != "launches"},
                    cut_width={k: v for k, v in joint_cli.items() if k != "eval_launches"}),
+        data_parallel=dict(
+            one_rank={k: v for k, v in dp_one.items() if "launches" not in k},
+            two_ranks={k: v for k, v in dp_two.items() if k != "launches"}),
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

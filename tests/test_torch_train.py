@@ -35,6 +35,7 @@ from voxelmorph_tpu_torch.models import modelio
 from voxelmorph_tpu_torch.models import vxm as vxm_module
 from voxelmorph_tpu_torch.models.vxm import VxmDense
 from voxelmorph_tpu_torch.ops.warp_bounded import warp_bounded
+from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
 from voxelmorph_tpu_torch.py.utils import load_volfile
 from voxelmorph_tpu_torch.registration import register_pair
 from voxelmorph_tpu_torch.training import LossTerm, Trainer, find_latest_checkpoint
@@ -294,11 +295,26 @@ def test_cli_train_then_register(tmp_path, capsys):
     assert np.abs(ref_warp).max() > 1e-3
 
 
-@pytest.mark.parametrize("flag", [["--spatial-shard"], ["--coordinator", "localhost:1"],
+# what the CLI refuses of the multi-device flags, by the first flag: the
+# error and the flag it names
+REFUSED = {"--spatial-shard": (NotImplementedError, "--spatial-shard"),
+           "--coordinator": (ValueError, "--num-processes"),
+           "--process-id": (ValueError, "--process-id"),
+           "--num-processes": (ValueError, "--coordinator")}
+
+
+@pytest.mark.parametrize("flag", [["--spatial-shard"],
+                                  ["--coordinator", "localhost:1", "--num-processes", "0"],
                                   ["--process-id", "1"], ["--num-processes", "2"]])
-def test_cli_train_rejects_unported_flags(tmp_path, flag):
+def test_cli_train_rejects_unported_flags(tmp_path, flag, monkeypatch):
+    """--spatial-shard where the batch leaves ranks over for the 'space'
+    axis (spatial sharding is not ported; a world of two ranks, the batch
+    of one), --num-processes below 1, a --process-id outside the job and
+    several processes without --coordinator raise, naming the flag."""
     _blob_files(tmp_path, n=2)
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    monkeypatch.setattr(mesh_lib, "world", lambda: (0, 2))
+    error, named = REFUSED[flag[0]]
+    with pytest.raises(error, match=named):
         train_cli.main(["--img-list", str(tmp_path / "list.txt"), "--device", "cpu", *flag])
 
 

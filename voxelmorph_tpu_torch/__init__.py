@@ -28,4 +28,4 @@ from . import generators, layers, losses, ops, py  # noqa: E402
 from . import models  # noqa: E402
 from . import networks  # noqa: E402,F401
 from . import utils  # noqa: E402,F401
-from . import registration, training  # noqa: E402
+from . import parallel, registration, training  # noqa: E402

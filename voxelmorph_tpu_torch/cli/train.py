@@ -11,9 +11,21 @@ dimensionality. ``--cache-device`` loads the training set onto the device
 once and draws pairs there; with ``--steps-per-dispatch`` K, each K steps'
 metrics stay on the device until one fetch of their mean
 (``Trainer.fit_cached_pairs``). It runs on the GPU unless ``--device cpu`` is
-given. The JAX script's multi-device options (``--spatial-shard``,
-``--coordinator``, ``--num-processes``, ``--process-id``) are not ported and
-raise.
+given.
+
+Data-parallel training runs one process per card, each started with the
+same flags and its own ``--process-id``:
+
+    python -m voxelmorph_tpu_torch.cli.train ... --batch-size 4 \
+        --num-processes 4 --coordinator host0:29500 --process-id R
+
+Every process draws the same global batches (the generators are seeded
+alike; ``--cache-device`` picks from a stream keyed by the step) and trains
+on its rows, NCCL (gloo with ``--device cpu``) averaging the gradients;
+process 0 writes the checkpoints. ``--spatial-shard`` gives ranks that the
+batch leaves over to the first spatial axis, as in the JAX script; spatial
+sharding itself is not ported, so that raises, and where no rank is left
+over the run is plain data parallelism.
 """
 
 from __future__ import annotations
@@ -48,16 +60,22 @@ def parse_args(argv=None):
     parser.add_argument('--lr', type=float, default=1e-4, help='Adam learning rate (default: 1e-4)')
     parser.add_argument('--clip-grad', type=float,
                         help='optional global-norm gradient clip')
-    parser.add_argument('--spatial-shard', action='store_true', help='not ported (raises)')
+    parser.add_argument('--spatial-shard', action='store_true',
+                        help='also shard the first spatial axis across the ranks the batch '
+                             'leaves over (not ported: raises where any are)')
     parser.add_argument('--steps-per-dispatch', type=int, default=None,
                         help='with --cache-device: train steps per dispatch, whose metrics '
                              'are read once, as their mean (0 = whole epoch)')
     parser.add_argument('--cache-device', action='store_true',
                         help='preload the whole training set onto the device and draw pairs '
                              'there (removes per-step host transfers)')
-    parser.add_argument('--coordinator', help='not ported (raises)')
-    parser.add_argument('--num-processes', type=int, default=1, help='not ported (raises if > 1)')
-    parser.add_argument('--process-id', type=int, default=0, help='not ported (raises if > 0)')
+    # data parallelism: one process per card, the process group at process 0
+    parser.add_argument('--coordinator',
+                        help='address of process 0, e.g. host0:29500 (several processes only)')
+    parser.add_argument('--num-processes', type=int, default=1,
+                        help='total number of processes in the job')
+    parser.add_argument('--process-id', type=int, default=0,
+                        help='index of this process (0-based)')
 
     # network architecture parameters
     parser.add_argument('--enc', type=int, nargs='+',
@@ -88,33 +106,52 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _reject_unported(args):
-    unported = [name for name, given in (
-        ('--spatial-shard', args.spatial_shard),
-        ('--coordinator', args.coordinator is not None),
-        ('--num-processes', args.num_processes != 1),
-        ('--process-id', args.process_id != 0)) if given]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: multi-device training is not ported to "
-            "voxelmorph_tpu_torch yet")
+def _check_processes(args):
+    if args.num_processes < 1:
+        raise ValueError(f'--num-processes must be at least 1, got {args.num_processes}')
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f'--process-id {args.process_id} is not one of the '
+                         f'{args.num_processes} processes of --num-processes')
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError('--num-processes > 1 needs --coordinator, the address of process 0')
 
 
 def main(argv=None):
     args = parse_args(argv)
-    _reject_unported(args)
+    _check_processes(args)
     if args.steps_per_dispatch is not None and not args.cache_device:
         raise SystemExit('--steps-per-dispatch requires --cache-device')
 
-    import torch
+    from .. import resolve_device
+    from ..parallel.mesh import initialize_distributed
 
-    from .. import generators, losses, resolve_device
+    device = resolve_device(args.device)
+    # before anything else touches the device or draws a batch
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id, device)
+    try:
+        _train(args, device)
+    finally:
+        if args.num_processes > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, device):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from .. import generators, losses
     from ..models.vxm import VxmDense
     from ..py.utils import load_volfile, read_file_list
     from ..training import (LossTerm, Trainer, device_cached_pair_generator, init_or_resume,
                             load_volume_stack, resolve_dtype)
 
-    device = resolve_device(args.device)
+    if args.num_processes > 1:
+        # every process draws the global batches of process 0's seed
+        seed = [int(np.random.default_rng().integers(2 ** 62))]
+        dist.broadcast_object_list(seed, src=0)
+        generators.seed_rng(seed[0])
     train_files = read_file_list(args.img_list, prefix=args.img_prefix, suffix=args.img_suffix)
     if not train_files:
         raise ValueError('Could not find any training data.')
@@ -178,9 +215,10 @@ def main(argv=None):
         terms.append(LossTerm('reg', losses.Grad('l2', loss_mult=args.int_downsize).loss,
                               weight=args.lambda_weight, target_index=reg_target, name='grad'))
 
-    trainer = Trainer(model, terms, lr=args.lr, clip_norm=args.clip_grad, device=device)
+    trainer = Trainer(model, terms, lr=args.lr, clip_norm=args.clip_grad, device=device,
+                      spatial_shard=args.spatial_shard)
     initial_epoch = init_or_resume(trainer, args.load_weights, args.model_dir,
-                                   args.initial_epoch)
+                                   args.initial_epoch, sample_inputs=tuple(sample[0]))
     # +1: the shape probe above drew step 0 of the cached stream, so epoch e
     # trains on steps e * S + 1 .. (e + 1) * S, on either cached path
     start_step = initial_epoch * args.steps_per_epoch + 1

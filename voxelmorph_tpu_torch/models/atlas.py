@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import batch_mean
 from .unet import ConvBlock, lecun_normal_
 from .vxm import VxmDense
 
@@ -35,7 +36,9 @@ class MeanStream(nn.Module):
     with weight ``B / count``, where ``count = min(count + B, cap)``, and
     returns ``min(1, count / cap) * mean`` of the updated values, broadcast
     to the batch; the gradient flows into ``x`` through the batch mean, as
-    in the JAX package. In eval mode nothing changes and the output is the
+    in the JAX package. In a train step over several ranks the batch is the
+    global one (``parallel.mesh.batch_mean``), so every rank folds in the
+    same mean and count. In eval mode nothing changes and the output is the
     stored mean, so scaled.
 
     Inside ``stream_step`` (a train step of the ``Trainer``) the update is
@@ -57,9 +60,9 @@ class MeanStream(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, count = self.mean, self.count
         if self.training:
-            bs = x.shape[0]
+            bs, x_mean = batch_mean(x.float())
             count = torch.clamp(count + bs, max=self.cap)
-            mean = mean + (bs / count) * (x.float().mean(dim=0) - mean)
+            mean = mean + (bs / count) * (x_mean - mean)
             if self._in_step:
                 self._pending = mean.detach(), count
             else:

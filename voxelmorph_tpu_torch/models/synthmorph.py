@@ -39,6 +39,7 @@ from ..ops import warp as warp_ops
 from ..ops.image import (barycenter, gaussian_blur, multiscale_noise_draws,
                          multiscale_noise_from_draws, sqrtm)
 from ..ops.interp import interpn_label_onehot, ndgrid
+from ..parallel.mesh import draw_rows
 from .unet import HyperConv, _upsample_nearest, leaky_relu, lecun_normal_
 from .vxm import _DTYPES, VxmDense
 
@@ -319,13 +320,17 @@ class SynthMorphDense(nn.Module):
         """The draws of one forward, in this order from ``generator``: the
         shared-contrast coin ``share`` (a bool tensor; only when
         ``shared_contrast > 0``), then the source's ``labels_to_image_draws``
-        (``src``), then the target's (``trg``)."""
+        (``src``), then the target's (``trg``). In a train step over several
+        ranks each image's draws are the global batch's, of which this rank
+        keeps its rows (``parallel.mesh.draw_rows``)."""
         share = None
         if self.shared_contrast > 0:
             share = torch.rand((), generator=generator, device=device) < self.shared_contrast
-        return {"share": share,
-                "src": labels_to_image_draws(generator, self.cfg, batch, device),
-                "trg": labels_to_image_draws(generator, self.cfg, batch, device)}
+
+        def images(n):
+            return labels_to_image_draws(generator, self.cfg, n, device)
+
+        return {"share": share, "src": draw_rows(images, batch), "trg": draw_rows(images, batch)}
 
     def forward(self, src_labels: torch.Tensor, trg_labels: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

@@ -27,6 +27,7 @@ from torch import nn
 from ..ops import warp as warp_ops
 from ..ops.affine import is_affine_shape, rescale_affine
 from ..ops.warp_bounded import MAX_CHANNELS as _MAX_WARP_CHANNELS
+from ..parallel.mesh import draw_rows
 from .unet import Unet
 
 __all__ = ["VxmDense", "VxmDenseSemiSupervisedSeg", "VxmDenseSemiSupervisedPointCloud",
@@ -48,8 +49,11 @@ def rescale_flow(flow: torch.Tensor, factor, batched: bool = True) -> torch.Tens
 
 
 def sample_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Standard normal noise of ``shape`` for the probabilistic flow sample."""
-    return torch.randn(shape, generator=generator, device=device)
+    """Standard normal noise of ``shape`` for the probabilistic flow sample;
+    in a train step over several ranks, this rank's rows of the global
+    batch's noise (``parallel.mesh.draw_rows``)."""
+    return draw_rows(lambda batch: torch.randn((batch, *shape[1:]), generator=generator,
+                                               device=device), shape[0])
 
 
 class VxmDense(nn.Module):

@@ -1,6 +1,6 @@
 """Training: loss wiring, the Adam train step, the epoch loop, checkpoints.
 
-Counterpart of ``voxelmorph_tpu/training.py`` for one device: ``LossTerm``
+Counterpart of ``voxelmorph_tpu/training.py``: ``LossTerm``
 and ``make_loss_fn`` wire model outputs to losses with the same weighting
 (``total += mean(w * raw)``) and metrics; ``Trainer`` takes Adam steps with
 optax's defaults (``torch.optim.Adam``, b1 0.9, b2 0.999, eps 1e-8, with
@@ -14,11 +14,18 @@ from a checkpoint of either. ``Trainer.fit_cached_pairs`` and the
 ``device_cached_*`` generators train from a stack of volumes held on the
 device, drawing their picks from the JAX package's stateless stream. It runs
 on the GPU unless the caller passes ``device="cpu"``.
+
+Over a process group of several ranks (``parallel.mesh``) the ``Trainer``
+is data-parallel, as the JAX Trainer is over its device mesh: each step
+takes the global batch, each rank computes on its rows, the model is
+wrapped in ``DistributedDataParallel`` and a step computes the update of the
+global batch. Rank 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
 
 import contextlib
+import inspect
 import os
 import queue
 import re
@@ -28,10 +35,12 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import resolve_device
 from .models import modelio
 from .models.atlas import stream_step
+from .parallel import mesh as mesh_lib
 from .py.utils import load_volfile
 
 __all__ = ["LossTerm", "make_loss_fn", "Trainer", "MetricsLogger", "Prefetcher",
@@ -256,10 +265,22 @@ class Trainer:
     numpy arrays, as the JAX package's generators do. The model's initial
     weights are those it was built with (or a checkpoint's, through
     ``load``); ``seed`` seeds the generator of the model's sampling noise.
+
+    ``mesh`` (``parallel.mesh``; by default built from the first batch with
+    ``make_mesh_for_batch`` over the ranks of the process group) splits each
+    batch over its 'data' axis. On a world of several ranks every rank runs
+    the same steps on the same global batches and keeps its rows
+    (``shard_batch``); the model is wrapped in ``DistributedDataParallel``
+    (no buffer broadcast: MeanStream folds in the global batch itself), the
+    sampling draws are made at the global batch's shape, and each step's
+    metrics are averaged over the ranks on the device. A mesh whose 'space'
+    axis is > 1 (``spatial_shard`` with ranks left over) raises
+    NotImplementedError.
     """
 
     def __init__(self, model, loss_terms: Sequence[LossTerm], lr: float = 1e-4,
-                 seed: int = 0, clip_norm: Optional[float] = None, device="cuda"):
+                 seed: int = 0, clip_norm: Optional[float] = None, device="cuda",
+                 mesh=None, spatial_shard: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_terms = list(loss_terms)
@@ -275,26 +296,62 @@ class Trainer:
         self.loaded_from = None  # checkpoint path when resumed via load()
         self._save_thread = None  # the background checkpoint write in flight
         self._save_error = None  # its failure, raised again at the next join
+        self.spatial_shard = spatial_shard
+        self.mesh = None
+        self.ddp = None  # the DistributedDataParallel wrapper on a world of several ranks
+        self.rank, self.world_size = mesh_lib.world()
+        if mesh is not None:
+            self._set_mesh(mesh)
 
-    def init(self):
-        """(Re)create the optimizer for the model's current parameters."""
+    def _set_mesh(self, mesh):
+        if mesh.shape.get("space", 1) > 1:
+            raise NotImplementedError(mesh_lib.SPATIAL_SHARDING)
+        self.mesh = mesh
+        if self.world_size > 1 and self.ddp is None:
+            # the ranks start from rank 0's weights and buffers (DDP
+            # broadcasts them) and sync no buffer at a forward
+            ddp = torch.nn.parallel.DistributedDataParallel
+            no_sync = ("forward_sync_buffers" if "forward_sync_buffers" in
+                       inspect.signature(ddp).parameters else "broadcast_buffers")
+            self.ddp = ddp(self.model, device_ids=(
+                [torch.cuda.current_device() if self.device.index is None else self.device.index]
+                if self.device.type == "cuda" else None), **{no_sync: False})
+            self.loss_fn = make_loss_fn(self.ddp, self.loss_terms)
+
+    def _ensure_mesh(self, arrays):
+        """Build the mesh from a batch (its size, and its first spatial
+        dim with ``spatial_shard``), as the JAX Trainer does."""
+        if self.mesh is None:
+            shape = np.shape(arrays[0])
+            spatial = int(shape[1]) if self.spatial_shard and len(shape) > 2 else None
+            self._set_mesh(mesh_lib.make_mesh_for_batch(int(shape[0]), spatial_size=spatial))
+
+    def init(self, sample_inputs=None):
+        """(Re)create the optimizer for the model's current parameters; with
+        ``sample_inputs`` (a batch like the ones training will see) build the
+        mesh for it now rather than at the first step."""
+        if sample_inputs is not None:
+            self._ensure_mesh(sample_inputs)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
 
     def _put(self, arrays):
-        return tuple(torch.as_tensor(a, dtype=torch.float32, device=self.device)
-                     for a in arrays)
+        return mesh_lib.shard_batch(self.mesh, tuple(arrays), spatial=self.spatial_shard,
+                                    device=self.device)
 
     def train_step(self, inputs, targets) -> Dict[str, torch.Tensor]:
-        """One Adam step on a batch; returns the step's metrics (device
-        scalars, read without a host synchronisation until the caller does)."""
+        """One Adam step on a (global) batch; returns the step's metrics
+        (device scalars, read without a host synchronisation until the
+        caller does; averaged over the ranks)."""
+        self._ensure_mesh(inputs)
         if self.optimizer is None:
             self.init()
-        self.model.train()
+        (self.model if self.ddp is None else self.ddp).train()
+        batch = int(np.shape(inputs[0])[0])
         inputs, targets = self._put(inputs), self._put(targets)
         self.optimizer.zero_grad(set_to_none=True)
         # the model's mutable state (MeanStream) updates once, as the step ends
-        with stream_step(self.model):
+        with stream_step(self.model), mesh_lib.sharded_step(self.mesh, batch):
             loss, metrics = self.loss_fn(inputs, targets, self.generator)
             loss.backward()
         if self.clip_norm is not None:
@@ -302,7 +359,16 @@ class Trainer:
                                   if p.grad is not None], self.clip_norm)
         self.optimizer.step()
         self.global_step += 1
-        return metrics
+        return self._rank_mean(metrics)
+
+    def _rank_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``metrics`` averaged over the ranks, in one all-reduce on the
+        device (as they are on a world of one)."""
+        if self.world_size == 1:
+            return metrics
+        values = torch.stack(list(metrics.values()))
+        dist.all_reduce(values)
+        return dict(zip(metrics, (values / self.world_size).unbind()))
 
     def _dispatch_mean(self, step_metrics) -> Dict[str, float]:
         """The mean of each metric over steps, read to the host in one fetch
@@ -318,8 +384,10 @@ class Trainer:
                     metrics_csv: Optional[str]) -> Dict[str, float]:
         """Run epochs ``initial_epoch`` to ``epochs`` of ``run_epoch`` (which
         returns the metrics to log); checkpoint at the start, every
-        ``save_freq_epochs`` epochs and at the end."""
-        logger = MetricsLogger(metrics_csv or (
+        ``save_freq_epochs`` epochs and at the end. Rank 0 alone logs."""
+        if self.rank:
+            log_fn = lambda msg: None  # noqa: E731
+        logger = MetricsLogger(None if self.rank else metrics_csv or (
             os.path.join(model_dir, "metrics.csv") if model_dir else None))
         if self.optimizer is None:
             self.init()
@@ -342,7 +410,7 @@ class Trainer:
                               wait=False)
                 elif self._save_error is not None:
                     # a background write failed since the last save: fail now
-                    self.wait_for_saves()
+                    self._join_save()
             self.wait_for_saves()
         finally:
             logger.close()
@@ -540,8 +608,11 @@ class Trainer:
         their device first (before this returns); the file is the one
         ``wait=True`` writes at this step. At most one write is in flight (a
         new save joins the last), and a failed write is raised again at the
-        next join (``wait_for_saves``)."""
-        self.wait_for_saves()
+        next join (``wait_for_saves``). Over several ranks rank 0 alone
+        writes."""
+        self._join_save()
+        if self.rank:
+            return
         with torch.no_grad():
             tensors = dict(self.model.named_parameters())
             tensors.update(self.model.named_buffers())
@@ -577,7 +648,15 @@ class Trainer:
     def wait_for_saves(self):
         """Block until the background checkpoint write, if any, is done;
         raise ``RuntimeError("async checkpoint write failed")`` from its
-        error if it failed, rather than train on with a stale checkpoint."""
+        error if it failed, rather than train on with a stale checkpoint.
+        Over several ranks, every rank then waits for the others (a barrier),
+        so that none reads a checkpoint that rank 0 is still writing."""
+        self._join_save()
+        if self.world_size > 1:
+            dist.barrier()
+
+    def _join_save(self):
+        """Wait for the background write, raising its failure."""
         if self._save_thread is not None:
             self._save_thread.join()
             self._save_thread = None
@@ -585,18 +664,21 @@ class Trainer:
         if err is not None:
             raise RuntimeError("async checkpoint write failed") from err
 
-    def load(self, path: str):
+    def load(self, path: str, sample_inputs=None):
         """Restore the params and, where the checkpoint has them, the model's
         state (zero where it has none), Adam's state, the step and the
         sampling generator's state, from a checkpoint of either package.
-        Raises if its optimizer state cannot be mapped."""
+        Raises if its optimizer state cannot be mapped. Every rank reads the
+        file; the weights are then made rank 0's (``replicate``).
+        ``sample_inputs`` builds the mesh, as in ``init``."""
         self.wait_for_saves()
         _, _, flat, extra = modelio.read_checkpoint(path, with_extra=True)
         if any(k.startswith("torch_opt||") for k in extra):
             raise ValueError(f"{path} holds Adam's state under torch_opt||, a layout that "
                              "this version does not read; load its weights with load_model")
         modelio.load_weights(self.model, flat, modelio.checkpoint_state(extra))
-        self.init()
+        self.init(sample_inputs)
+        mesh_lib.replicate(self.mesh, list(self.model.state_dict().values()))
         self.loaded_from = path
         opt = {k[len(_OPT) + 2:]: v for k, v in extra.items() if k.startswith(_OPT + "||")}
         if opt:
@@ -622,20 +704,22 @@ def find_latest_checkpoint(model_dir: str):
 
 
 def init_or_resume(trainer: Trainer, load_weights: Optional[str], model_dir: str,
-                   initial_epoch: int = 0, log_fn: Callable[[str], None] = print) -> int:
+                   initial_epoch: int = 0, log_fn: Callable[[str], None] = print,
+                   sample_inputs=None) -> int:
     """``load_weights`` 'latest' resumes from the newest numbered checkpoint
     in ``model_dir`` (if any), a path loads that file, None starts fresh.
-    Returns the epoch to continue from."""
+    ``sample_inputs`` (a batch) builds the trainer's mesh now. Returns the
+    epoch to continue from."""
     if load_weights == "latest":
         path, epoch = find_latest_checkpoint(model_dir)
         if path:
             log_fn(f"resuming from {path} (epoch {epoch})")
-            trainer.load(path)
+            trainer.load(path, sample_inputs)
             return max(initial_epoch, epoch)
     elif load_weights:
-        trainer.load(load_weights)
+        trainer.load(load_weights, sample_inputs)
         return initial_epoch
-    trainer.init()
+    trainer.init(sample_inputs)
     return initial_epoch
 
 
