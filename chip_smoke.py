@@ -13,6 +13,8 @@ Run from the root of the repository:
     python3 chip_smoke.py --conditioning
         # also the readings behind phase 8's and 12c's card-vs-CPU limits,
         # 12c's dispatch halo and 13c's masked faces
+    python3 chip_smoke.py --nccl-ranks 4
+        # instead of the smoke run (on a host with 4 cards): phase 15c alone
 
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
@@ -234,7 +236,31 @@ Phases:
      batch 2 on the card: the loss, the gradients within DP_GRAD_RTOL of
      each tensor's max, the updated params within rtol 1e-4, atol 1e-6
      (JAX's DP-vs-single bound) wherever the two runs' gradients agree in
-     sign, and the two ranks' params bit-equal.
+     sign, and the two ranks' params bit-equal;
+  15a. spatial sharding over two processes on the one card over gloo
+     (chip_smoke.py --sp-rank R --sp-world 2 --sp-dir DIR): a (1, 2) mesh,
+     each rank training the U-Net of phase 4's recipe (float32, TF32 off,
+     seed 0, bs1, cudnn.deterministic) on 80 of the 160 planes, a plane of
+     halo exchanged around every conv, the flow gathered for the
+     integration, warps and losses: 3 steps in cuDNN mode and 2 in
+     conv-kernel mode, each step held to one process's step on the card
+     from the same params and Adam state (the loss within 1e-5, the
+     gradients within DP_GRAD_RTOL of each tensor's max, the params after
+     it as 14b holds them) and the losses to one process's run of the same
+     steps, the ranks bit-equal, each rank's work counters those of the one
+     process's step (32 conv launches a step in conv-kernel mode), each
+     rank's peak memory beside the one process's; then the committed bfloat16 checkpoint's register call on
+     the ranks' slabs against phase 3's call, within phase 3's bfloat16
+     limits;
+  15b. four processes in one launch: a (1, 4) mesh of uneven slabs
+     (48/48/32/32 planes) and a (2, 2) mesh at batch 2, one step each, held
+     to one process's step as in 15a (correctness only: gloo's transport
+     through the host sets their times);
+  15c. (--nccl-ranks N only, after the build, in place of the other
+     phases) one process per card over NCCL: phase 4's step spatially
+     sharded on (1, N) in cuDNN and conv-kernel mode and data-parallel on
+     (N, 1) at batch N, SP_NCCL_STEPS steps each, held to one card as 15a
+     holds its steps, with s per step and peak memory beside one card's.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -4622,8 +4648,8 @@ DP_RANK_TIMEOUT_S = 300
 
 def dp_batch(moving, fixed, batch):
     """Phase 4's recipe's inputs and targets at ``batch``: the pair, then
-    the pair swapped."""
-    pairs = [(moving, fixed), (fixed, moving)][:batch]
+    the pair swapped, in turns."""
+    pairs = ([(moving, fixed), (fixed, moving)] * batch)[:batch]
     src = torch.cat([p[0] for p in pairs])
     trg = torch.cat([p[1] for p in pairs])
     return (src, trg), (trg, torch.zeros((batch, *INSHAPE, 3), device=moving.device))
@@ -4818,6 +4844,319 @@ def dp_two_ranks(smi):
                 undetermined=undetermined, seconds=ranks_s)
 
 
+# spatial sharding (phase 15): the steps of each run, and how long the
+# spawned ranks may take
+SP_STEPS = {"cudnn": 3, "conv": 2}
+SP_RANK_TIMEOUT_S = 400
+# phase 15c's steps of each run: the first is a warm-up, the median of the
+# rest is its s per step
+SP_NCCL_STEPS = 5
+
+
+def sp_run(mesh, batch, steps, conv, moving, fixed):
+    """``steps`` steps of phase 4's recipe at ``batch`` (dp_batch) with the
+    Trainer over ``mesh`` (None: one process), cudnn.deterministic, in
+    conv-kernel mode with ``conv``: each step's loss, gradients, seconds and
+    launches, the params and Adam state before it, the params after the
+    steps and the peak memory."""
+    inputs, targets = dp_batch(moving, fixed, batch)
+    with deterministic_cudnn(), conv_kernel_mode(conv):
+        model, terms = default_recipe(INSHAPE)
+        trainer = Trainer(model, terms, lr=1e-4, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.init()
+        out = dict(losses=[], grads=[], seconds=[], launches=[], before=[])
+        for _ in range(steps):
+            out["before"].append(({n: p.detach().cpu().clone()
+                                   for n, p in model.named_parameters()},
+                                  _cpu_tree(trainer.optimizer.state_dict())))
+            reset_launches()
+            t0 = time.perf_counter()
+            out["losses"].append(trainer.train_step(inputs, targets)["loss"].item())
+            out["seconds"].append(time.perf_counter() - t0)
+            out["launches"].append(read_launches())
+            out["grads"].append({n: p.grad.detach().cpu().clone()
+                                 for n, p in model.named_parameters()})
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["params"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        out["mesh"] = dict(trainer.mesh.shape)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_register(mesh, moving, fixed):
+    """The committed bfloat16 checkpoint's register call on this rank's
+    slabs (shard_batch(spatial=True)) inside mesh_lib.spatial: the moved
+    image and warp, whole on every rank, and the call's launches."""
+    from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
+
+    model = load_model(str(CHECKPOINT), device="cuda")
+    src, trg = mesh_lib.shard_batch(mesh, (moving, fixed), spatial=True, device="cuda",
+                                    align=model.slab_align)
+    register = build_register_fn(model)
+    # phase 3's settings: cuDNN's float32 convolutions (the flow head) in TF32
+    torch.backends.cudnn.allow_tf32 = True
+    with mesh_lib.spatial(mesh):
+        register(src, trg)  # a first call, untimed
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        moved, warp = register(src, trg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check_warp_work(launches, "15a, the sharded register call", backward=False)
+    return dict(moved=moved.cpu(), warp=warp.cpu(), launches=launches, seconds=seconds,
+                slab=int(src.shape[1]))
+
+
+def _cpu_tree(tree):
+    """A copy of a nested dict or list of tensors, the tensors on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_tree(v) for v in tree]
+    return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def sp_replay(before, batch, conv, moving, fixed):
+    """One process's step of phase 4's recipe from each state ``before`` (a
+    sharded run's params and Adam state before each of its steps), as
+    sp_run takes it: each step's loss, gradients and params after, to hold
+    the sharded step to one process's step from the same state."""
+    inputs, targets = dp_batch(moving, fixed, batch)
+    with deterministic_cudnn(), conv_kernel_mode(conv):
+        model, terms = default_recipe(INSHAPE)
+        trainer = Trainer(model, terms, lr=1e-4, device="cuda")
+        trainer.init()
+        out = dict(losses=[], grads=[], after=[])
+        for params, adam in before:
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(params[n])
+            trainer.optimizer.load_state_dict(adam)
+            out["losses"].append(trainer.train_step(inputs, targets)["loss"].item())
+            out["grads"].append({n: p.grad.detach().cpu().clone()
+                                 for n, p in model.named_parameters()})
+            out["after"].append({n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(rank, world, tmp, nccl=False):
+    """A rank of phase 15 (``chip_smoke.py --sp-rank R --sp-world N
+    --sp-dir DIR``), sharing the one card with the others over gloo: with 2
+    ranks, phase 15a's runs on a (1, 2) mesh and the sharded register
+    call; with 4, phase 15b's steps on (1, 4) and (2, 2) meshes. With
+    ``nccl`` (``--sp-nccl``), on a card of its own over NCCL, phase 15c's
+    runs on (1, N) and (N, 1). Writes its results to DIR/rank{R}.pt."""
+    import torch.distributed as dist
+    from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_lib.initialize_distributed(f"file://{tmp}/store", world, rank,
+                                    "cuda" if nccl else "cpu")
+    try:
+        moving, fixed = smooth_pair(INSHAPE, "cuda")
+        if nccl:
+            space, data = mesh_lib.make_mesh((1, world)), mesh_lib.make_mesh((world, 1))
+            out = {"spatial": sp_run(space, 1, SP_NCCL_STEPS, False, moving, fixed),
+                   "spatial_conv": sp_run(space, 1, SP_NCCL_STEPS, True, moving, fixed),
+                   "data": sp_run(data, world, SP_NCCL_STEPS, False, moving, fixed)}
+        elif world == 2:
+            mesh = mesh_lib.make_mesh((1, 2))
+            out = {mode: sp_run(mesh, 1, n, mode == "conv", moving, fixed)
+                   for mode, n in SP_STEPS.items()}
+            out["register"] = sp_register(mesh, moving, fixed)
+        else:
+            out = {"row": sp_run(mesh_lib.make_mesh((1, 4)), 1, 1, False, moving, fixed),
+                   "grid": sp_run(mesh_lib.make_mesh((2, 2)), 2, 1, False, moving, fixed)}
+        out["backend"] = dist.get_backend()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_spawn(world, label, nccl=False):
+    """Start ``world`` ranks of phase 15 (on the one card over gloo, or with
+    ``nccl`` one per card) and wait for them; returns each rank's results
+    and the seconds they took."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sp-rank",
+                                   str(r), "--sp-world", str(world), "--sp-dir", tmp]
+                                  + ["--sp-nccl"] * nccl,
+                                  cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=SP_RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        seconds = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"{label}: rank {r} exited with {p.returncode}:\n{out}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)], seconds
+
+
+WORK_KEYS = ("fwd", "fwd_ran", "bwd", "bwd_ran", "gather_fwd", "gather_fwd_ran", "gather_bwd",
+             "gather_bwd_ran", "conv")
+
+
+def sp_hold(label, ranks_, ref, same, mesh, smi):
+    """Hold each rank's run (sp_run) to one process. Each step to one
+    process's step from the same params and Adam state (``same``,
+    sp_replay): the loss within 1e-5, the gradients within DP_GRAD_RTOL of
+    each tensor's max, the params after it within DP_RTOL/DP_ATOL wherever
+    the two steps' gradients agree in sign or lie outside their gap of zero
+    (as 14b holds them). The losses to one process's run of the same steps
+    (``ref``) within 1e-5; every rank's params bit-equal to rank 0's; every
+    rank's work counters those of the one process's steps. Returns a
+    summary."""
+    got = ranks_[0]
+    if got["mesh"] != mesh:
+        raise AssertionError(f"{label}: the mesh is {got['mesh']}, not {mesh}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(got["losses"] * 2, same["losses"] + ref["losses"]))
+    grad_rel = max(((g[n] - r[n]).abs().max() / r[n].abs().max()).item()
+                   for g, r in zip(got["grads"], same["grads"]) for n in r)
+    afters = [b[0] for b in got["before"][1:]] + [got["params"]]
+    outside, undetermined, worst = 0, 0, 0.0
+    for g, r, mine, theirs in zip(got["grads"], same["grads"], afters, same["after"]):
+        for n, p in theirs.items():
+            share = (mine[n] - p).abs() / (DP_ATOL + DP_RTOL * p.abs())
+            free = (torch.sign(g[n]) != torch.sign(r[n])) & (
+                r[n].abs() <= (g[n] - r[n]).abs().max())
+            outside += int((share > 1).sum())
+            undetermined += int(((share > 1) & free).sum())
+            worst = max(worst, share.masked_fill(free, 0).max().item())
+    replicas = all(torch.equal(other["params"][n], got["params"][n])
+                   for other in ranks_[1:] for n in got["params"])
+    work = [[{k: c[k] for k in WORK_KEYS} for c in r["launches"]] for r in ranks_]
+    ref_work = [{k: c[k] for k in WORK_KEYS} for c in ref["launches"]]
+    peaks = [round(r["peak_gib"], 3) for r in ranks_]
+    log(f"{label}: mesh {got['mesh']}; losses {got['losses']}, one process's from the same "
+        f"states {same['losses']}, one process's run {ref['losses']} (largest rel "
+        f"{loss_rel:.3e}); gradients within {grad_rel:.3e} of each tensor's max of one "
+        f"process's from the same states (tol {DP_GRAD_RTOL}); params after each step: "
+        f"{outside} elements outside rtol {DP_RTOL}, atol {DP_ATOL} of one process's step, "
+        f"of which {undetermined} have gradients of opposite sign within the steps' gap of "
+        f"zero, the rest at {worst:.3f} of the tolerance; the ranks' params bit-equal "
+        f"{replicas}; rank 0's launches {got['launches'][-1]}; s per step of each rank "
+        f"{[[round(x, 4) for x in r['seconds']] for r in ranks_]} (one process "
+        f"{[round(x, 4) for x in ref['seconds']]}); peak memory allocated per rank {peaks} "
+        f"GiB, one process {ref['peak_gib']:.3f} GiB; {smi}")
+    if not (loss_rel <= 1e-5 and grad_rel <= DP_GRAD_RTOL):
+        raise AssertionError(f"{label}: the sharded steps' losses or gradients differ")
+    if outside != undetermined or not replicas:
+        raise AssertionError(f"{label}: the updated params differ from one process's")
+    for r, counts in enumerate(ranks_):
+        for step, c in enumerate(counts["launches"]):
+            check_warp_work(c, f"{label}, rank {r}, step {step}")
+    if any(w != ref_work for w in work):
+        raise AssertionError(f"{label}: a rank's work counters {work} are not one "
+                             f"process's {ref_work}")
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, outside=outside,
+                undetermined=undetermined, peak_gib=peaks, one_process_peak_gib=ref["peak_gib"],
+                s_per_step=[r["seconds"] for r in ranks_], one_process_s=ref["seconds"])
+
+
+def spatial_two_ranks(smi, moved_ref, warp_ref):
+    """Phase 15a: a (1, 2) mesh of two processes on the card against one
+    process (sp_rank, sp_hold), and the bfloat16 register call on slabs
+    against phase 3's ``moved_ref``, ``warp_ref``. Returns the launches of
+    rank 0's steps and call, and a summary."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks_, seconds = sp_spawn(2, "15a")
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    summary = dict(seconds=seconds, backend=ranks_[0]["backend"])
+    for mode, steps in SP_STEPS.items():
+        ref = sp_run(None, 1, steps, mode == "conv", moving, fixed)
+        same = sp_replay(ranks_[0][mode]["before"], 1, mode == "conv", moving, fixed)
+        summary[mode] = sp_hold(f"15a, {mode}", [r[mode] for r in ranks_], ref, same,
+                                {"data": 1, "space": 2}, smi)
+        if mode == "conv" and any(c["conv"] != TRAIN_STEP_CONVS or c["layout_copies"]
+                                  for r in ranks_ for c in r[mode]["launches"]):
+            raise AssertionError(f"15a: a conv-kernel step missed a kernel or copied a "
+                                 f"layout: {[r[mode]['launches'] for r in ranks_]}")
+    call = [r["register"] for r in ranks_]
+    flow_err, flow_mean = max_and_mean_abs(call[0]["warp"], warp_ref.cpu())
+    image_err, image_mean = max_and_mean_abs(call[0]["moved"], moved_ref.cpu())
+    alike = torch.equal(call[0]["warp"], call[1]["warp"]) and torch.equal(call[0]["moved"],
+                                                                          call[1]["moved"])
+    log(f"15a: bfloat16 register call on slabs of {call[0]['slab']} planes, "
+        f"{[round(c['seconds'], 4) for c in call]} s per rank (gloo through the host): "
+        f"pos_flow max abs err {flow_err:.4e} (mean {flow_mean:.4e}, tol {BF16_FLOW_TOL}), "
+        f"y_source {image_err:.4e} (mean {image_mean:.4e}, tol {BF16_IMAGE_TOL}) against "
+        f"phase 3's call; the ranks' outputs bit-equal {alike}; launches "
+        f"{call[0]['launches']}; 15a's ranks {seconds:.2f} s; {smi}")
+    if not (flow_err <= BF16_FLOW_TOL and image_err <= BF16_IMAGE_TOL and alike):
+        raise AssertionError("15a: the sharded bfloat16 register call differs")
+    summary["register"] = dict(flow_err=flow_err, image_err=image_err,
+                               seconds=[c["seconds"] for c in call])
+    return dict(cudnn=ranks_[0]["cudnn"]["launches"][-1],
+                conv=ranks_[0]["conv"]["launches"][-1],
+                register=call[0]["launches"]), summary
+
+
+def spatial_four_ranks(smi):
+    """Phase 15b: four processes in one launch, a step on a (1, 4) mesh
+    (slabs 48/48/32/32) and one on (2, 2) at batch 2, each held to one
+    process's step (sp_hold). Returns rank 0's launches and a summary."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks_, seconds = sp_spawn(4, "15b")
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    summary = dict(seconds=seconds)
+    for key, batch, mesh in (("row", 1, {"data": 1, "space": 4}),
+                             ("grid", 2, {"data": 2, "space": 2})):
+        ref = sp_run(None, batch, 1, False, moving, fixed)
+        same = dict(losses=ref["losses"], grads=ref["grads"], after=[ref["params"]])
+        summary[key] = sp_hold(f"15b, {key}", [r[key] for r in ranks_], ref, same, mesh, smi)
+    log(f"15b: four ranks {seconds:.2f} s")
+    return dict(row=ranks_[0]["row"]["launches"][-1],
+                grid=ranks_[0]["grid"]["launches"][-1]), summary
+
+
+def spatial_nccl(smi, world):
+    """Phase 15c: ``world`` processes, one per card, over NCCL: phase 4's
+    step spatially sharded on (1, N) in both conv modes and data-parallel
+    on (N, 1) at batch N, each run held to one card's from the same states
+    (sp_hold); s per step (the median after the first) beside one card's.
+    Returns a summary."""
+    if torch.cuda.device_count() < world:
+        raise AssertionError(f"15c: {world} ranks need {world} cards; "
+                             f"{torch.cuda.device_count()} present")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks_, seconds = sp_spawn(world, "15c", nccl=True)
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    summary = dict(seconds=seconds, backend=ranks_[0]["backend"], world=world)
+    for key, batch, conv, mesh in (("spatial", 1, False, {"data": 1, "space": world}),
+                                   ("spatial_conv", 1, True, {"data": 1, "space": world}),
+                                   ("data", world, False, {"data": world, "space": 1})):
+        ref = sp_run(None, batch, SP_NCCL_STEPS, conv, moving, fixed)
+        same = sp_replay(ranks_[0][key]["before"], batch, conv, moving, fixed)
+        summary[key] = sp_hold(f"15c, {key}", [r[key] for r in ranks_], ref, same, mesh, smi)
+        ranks_s = max(float(np.median(r[key]["seconds"][1:])) for r in ranks_)
+        one_s = float(np.median(ref["seconds"][1:]))
+        summary[key].update(s_per_step_median=ranks_s, one_card_s_per_step_median=one_s)
+        log(f"15c, {key}: {ranks_s:.4f} s per step over {world} cards (the slowest rank's "
+            f"median after the first), {one_s:.4f} on one card at batch {batch}: "
+            f"{one_s / ranks_s:.3f}x; peak per rank {summary[key]['peak_gib']} GiB, one "
+            f"card {ref['peak_gib']:.3f} GiB; {smi}")
+    log(f"15c: {world} ranks {seconds:.2f} s")
+    return summary
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4842,12 +5181,24 @@ def main(argv=None) -> int:
                              "pair's faces masked and not (JOINT_EDGE)")
     parser.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--dp-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--sp-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sp-world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sp-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--sp-nccl", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--nccl-ranks", type=int, metavar="N",
+                        help="instead of the smoke run: phase 15c alone, phase 4's step "
+                             "spatially sharded over N cards and data-parallel over them, "
+                             "one process per card over NCCL, against one card (needs N "
+                             "cards)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
     if args.dp_rank is not None:  # a rank that phase 14b started
         dp_rank(args.dp_rank, args.dp_dir)
+        return 0
+    if args.sp_rank is not None:  # a rank that phase 15 started
+        sp_rank(args.sp_rank, args.sp_world, args.sp_dir, args.sp_nccl)
         return 0
     # the serving path's own halo rule and conv dispatch, whatever the
     # environment says
@@ -4870,6 +5221,15 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if any(key in line for key in ("registers", "smem", "spill", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
+    if args.nccl_ranks:
+        t = phase(f"15c. spatial sharding over {args.nccl_ranks} cards with NCCL")
+        log("summary: " + json.dumps(spatial_nccl(smi, args.nccl_ranks)))
+        log(f"phase 15c: {time.perf_counter() - t:.2f} s")
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     compare_libs = build_compare_libraries(
         [(f"{i}:{src}", src, []) for i, src in enumerate(args.compare_warp_source)],
         "warp_bounded")
@@ -5043,6 +5403,15 @@ def main(argv=None) -> int:
     log(f"phase 14b: {time.perf_counter() - t:.2f} s; phase 14: "
         f"{time.perf_counter() - t14:.2f} s")
 
+    t15 = t = phase("15a. spatial sharding over two processes on the one card")
+    sp_two, sp_two_summary = spatial_two_ranks(smi, moved, warp)
+    log(f"phase 15a: {time.perf_counter() - t:.2f} s")
+
+    t = phase("15b. spatial sharding over four processes: (1, 4) and (2, 2)")
+    sp_four, sp_four_summary = spatial_four_ranks(smi)
+    log(f"phase 15b: {time.perf_counter() - t:.2f} s; phase 15: "
+        f"{time.perf_counter() - t15:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -5077,7 +5446,14 @@ def main(argv=None) -> int:
              # mode, and rank 0's step of two processes over gloo
              "train_step_data_parallel": dp_one["launches"],
              "train_step_data_parallel_conv": dp_one["conv_launches"],
-             "train_step_data_parallel_two_ranks": dp_two["launches"]}
+             "train_step_data_parallel_two_ranks": dp_two["launches"],
+             # rank 0 of the spatially sharded runs: a step on (1, 2) in cuDNN
+             # and conv-kernel mode, the bfloat16 register call, and a step
+             # on (1, 4) and on (2, 2)
+             "train_step_spatial": sp_two["cudnn"], "train_step_spatial_conv": sp_two["conv"],
+             "register_spatial": sp_two["register"],
+             "train_step_spatial_four_ranks": sp_four["row"],
+             "train_step_spatial_two_by_two": sp_four["grid"]}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -5174,6 +5550,7 @@ def main(argv=None) -> int:
         data_parallel=dict(
             one_rank={k: v for k, v in dp_one.items() if "launches" not in k},
             two_ranks={k: v for k, v in dp_two.items() if k != "launches"}),
+        spatial=dict(two_ranks=sp_two_summary, four_ranks=sp_four_summary),
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

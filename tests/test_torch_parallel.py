@@ -300,20 +300,28 @@ def test_sharded_serving_gathers_one_process(runs):
 
 
 def test_space_axis_refused(runs):
-    """A mesh whose 'space' axis is > 1 raises, naming the next slice, and
-    so does --spatial-shard where the batch leaves a rank over; where it
-    leaves none, --spatial-shard trains data-parallel, as in JAX."""
-    got = runs[2]["refusals"]
-    assert got["mesh"] == got["spatial_shard"] == mesh_lib.SPATIAL_SHARDING
-    assert "next slice" in got["mesh"] and "--spatial-shard" in got["mesh"]
+    """The 'space' axis is refused only to models outside the slice: over
+    two ranks a (1, 2) mesh, and --spatial-shard at batch 1, train a
+    VxmDense on slabs as one rank trains it whole; where the batch leaves no
+    rank over, --spatial-shard trains data-parallel, as in JAX; a
+    TemplateCreation on a (1, 2) mesh raises, naming itself."""
+    got, one = runs[2]["space_axis"], runs[1]["space_axis"]
+    assert got["spatial_shard_mesh_1"] == {"data": 1, "space": 2}
+    assert one["spatial_shard_mesh_1"] == {"data": 1, "space": 1}
+    start = _start(runs["case"])
+    for key in ("mesh", "spatial_shard"):
+        _assert_params(got[f"{key}_params"], one["spatial_shard_params"], start, key)
+    np.testing.assert_allclose(got["mesh_losses"], one["spatial_shard"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["spatial_shard"], one["spatial_shard"], rtol=LOSS_RTOL)
     assert got["spatial_shard_mesh"] == {"data": 2, "space": 1}
     assert np.isfinite(got["spatial_shard_dp"]).all()
-    assert "mesh" not in runs[1]["refusals"] and "spatial_shard" not in runs[1]["refusals"]
-    # in one process: a mesh of two ranks' grid with space 2, and the spec
+    assert "of TemplateCreation is not ported" in got["template"]
+    assert "template" not in one  # a mesh of one rank shards nothing
+    # in one process: a grid of two ranks that the world lacks, and the spec
     mesh = mesh_lib.make_mesh(shape=(1, 2), devices=[0, 1])
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="holds every rank of the world"):
         Trainer(VxmDense(SHAPE, nb_unet_features=ranks.FEATS), ranks.dp_terms(),
                 device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
-        mesh_lib.batch_sharding(mesh, 5, spatial=True)
+    assert mesh_lib.batch_sharding(mesh, 5, spatial=True).spec == (
+        "data", "space", None, None, None)
     assert mesh_lib.batch_sharding(mesh, 5).spec[0] == "data"

@@ -147,3 +147,66 @@ def test_cli_train_over_two_processes_matches_the_jax_script(tmp_path):
         before = modelio.read_checkpoint(before, with_extra=True)
         _step_checks(got, jax_ref, before)
         _step_checks(got, one)
+
+
+# cli/train's modes under --spatial-shard: the default (MSE + Grad), and
+# --image-loss ncc --use-probs --bidir --int-downsize 1 in the conv-kernel
+# mode (VXM_PALLAS_CONV=1; the kernel's plain version on the CPU)
+SPATIAL_MODES = {"mse": ([], {}),
+                 "ncc_probs_bidir_conv": (["--image-loss", "ncc", "--use-probs", "--bidir",
+                                           "--int-downsize", "1"], {"VXM_PALLAS_CONV": "1"})}
+
+
+def _port_start(tmp_path, flags):
+    """A port checkpoint at step 0 of the CLI's VxmDense for ``flags``, its
+    flow head redrawn N(0, 0.3) for flows of voxels."""
+    import torch
+
+    from voxelmorph_tpu_torch.models.vxm import VxmDense
+    from voxelmorph_tpu_torch.training import Trainer
+
+    model = VxmDense(SHAPE, nb_unet_features=[[4], [4, 4]], int_steps=2,
+                     int_resolution=1 if "--int-downsize" in flags else 2,
+                     use_probs="--use-probs" in flags, bidir="--bidir" in flags,
+                     generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.flow.weight.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(3))
+    path = str(tmp_path / "start.npz")
+    Trainer(model, [], device="cpu").save(path)
+    return path
+
+
+@pytest.mark.parametrize("mode", sorted(SPATIAL_MODES))
+def test_cli_train_spatial_shard_matches_one_process(tmp_path, monkeypatch, mode):
+    """cli/train --spatial-shard --num-processes 2 at batch 1: the rank the
+    batch leaves over takes the 'space' axis, each process trains the U-Net
+    on its 4 of the 8 planes (the one pool's 2-plane unit), and the
+    checkpoint after an epoch of two steps is the one-process CLI's, within
+    JAX's sharded-vs-single tolerance on the params and Adam's moments."""
+    flags, env_extra = SPATIAL_MODES[mode]
+    _scans(tmp_path)
+    start = _port_start(tmp_path, flags)
+    common = ["--img-list", str(tmp_path / "list.txt"), *NET, *flags, "--batch-size", "1",
+              "--cache-device", "--steps-per-epoch", "2", "--epochs", "1",
+              "--load-weights", start, "--device", "cpu"]
+    coordinator = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", **env_extra)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "voxelmorph_tpu_torch.cli.train", *common, "--spatial-shard",
+         "--model-dir", str(tmp_path / "sharded"), "--num-processes", "2",
+         "--coordinator", coordinator, "--process-id", str(r)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    for name, value in env_extra.items():
+        monkeypatch.setenv(name, value)
+    train_cli.main([*common, "--model-dir", str(tmp_path / "one")])  # meanwhile
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"process {r}:\n{log}"
+    assert "epoch 1/1" in logs[0] and "epoch" not in logs[1]
+    # no rank idle (without --spatial-shard, make_mesh_for_batch warns)
+    assert not any("make_mesh_for_batch" in log for log in logs)
+    got, one = (modelio.read_checkpoint(str(tmp_path / d / "0001.npz"), with_extra=True)
+                for d in ("sharded", "one"))
+    assert int(got[3]["train||step"]) == 2
+    _step_checks(got, one, modelio.read_checkpoint(start, with_extra=True))

@@ -297,7 +297,7 @@ def test_cli_train_then_register(tmp_path, capsys):
 
 # what the CLI refuses of the multi-device flags, by the first flag: the
 # error and the flag it names
-REFUSED = {"--spatial-shard": (NotImplementedError, "--spatial-shard"),
+REFUSED = {"--spatial-shard": (ValueError, "--spatial-shard"),
            "--coordinator": (ValueError, "--num-processes"),
            "--process-id": (ValueError, "--process-id"),
            "--num-processes": (ValueError, "--coordinator")}
@@ -307,10 +307,11 @@ REFUSED = {"--spatial-shard": (NotImplementedError, "--spatial-shard"),
                                   ["--coordinator", "localhost:1", "--num-processes", "0"],
                                   ["--process-id", "1"], ["--num-processes", "2"]])
 def test_cli_train_rejects_unported_flags(tmp_path, flag, monkeypatch):
-    """--spatial-shard where the batch leaves ranks over for the 'space'
-    axis (spatial sharding is not ported; a world of two ranks, the batch
-    of one), --num-processes below 1, a --process-id outside the job and
-    several processes without --coordinator raise, naming the flag."""
+    """--spatial-shard where the rank that the batch leaves over cannot
+    take a slab (a world of two ranks, patched in, at batch 1: 16 planes
+    do not split into two slabs of the default U-Net's 16-plane unit),
+    --num-processes below 1, a --process-id outside the job and several
+    processes without --coordinator raise, naming the flag."""
     _blob_files(tmp_path, n=2)
     monkeypatch.setattr(mesh_lib, "world", lambda: (0, 2))
     error, named = REFUSED[flag[0]]

@@ -175,26 +175,33 @@ def serving(case):
     return dict(rows=int(src_r.shape[0]), moved=moved.numpy(), warp=warp.numpy())
 
 
-def refusals(case):
-    """A mesh with a 'space' axis > 1, and --spatial-shard where the batch
-    leaves ranks over, raise; --spatial-shard where it leaves none trains."""
+def space_axis(case):
+    """A mesh whose 'space' axis takes every rank, and --spatial-shard at
+    batch 1 (the rank left over goes to 'space'), each one step of a
+    VxmDense on slabs of the first spatial dim; --spatial-shard at a batch
+    that leaves no rank over is data-parallel; a model outside the slice
+    (TemplateCreation) raises."""
     out = {}
-    try:
-        Trainer(vxm(case, 1), dp_terms(), device="cpu",
-                mesh=mesh_lib.make_mesh(shape=(1, mesh_lib.world()[1])))
-    except NotImplementedError as e:
-        out["mesh"] = str(e)
-    (src, trg), (_, zero) = case["batch8"]
-    trainer = Trainer(vxm(case, 1), dp_terms(), lr=LR, device="cpu", spatial_shard=True)
-    try:
-        trainer.train_step((src[:1], trg[:1]), (trg[:1], zero[:1]))
-    except NotImplementedError as e:
-        out["spatial_shard"] = str(e)
-    trainer = Trainer(vxm(case, 1), dp_terms(), lr=LR, device="cpu", spatial_shard=True)
     world = mesh_lib.world()[1]
+    (src, trg), (_, zero) = case["batch8"]
+    one = ((src[:1], trg[:1]), (trg[:1], zero[:1]))
+    trainer = Trainer(vxm(case, 1), dp_terms(), lr=LR, device="cpu",
+                      mesh=mesh_lib.make_mesh(shape=(1, world)))
+    out["mesh_losses"] = steps(trainer, *one, n=1)
+    out["mesh_params"] = state(trainer.model)
+    trainer = Trainer(vxm(case, 1), dp_terms(), lr=LR, device="cpu", spatial_shard=True)
+    out["spatial_shard"] = steps(trainer, *one, n=1)
+    out["spatial_shard_params"] = state(trainer.model)
+    out["spatial_shard_mesh_1"] = dict(trainer.mesh.shape)
+    trainer = Trainer(vxm(case, 1), dp_terms(), lr=LR, device="cpu", spatial_shard=True)
     out["spatial_shard_dp"] = steps(trainer, (src[:world], trg[:world]),
                                     (trg[:world], zero[:world]), n=1)
     out["spatial_shard_mesh"] = dict(trainer.mesh.shape)
+    try:
+        Trainer(TemplateCreation(SHAPE, nb_unet_features=FEATS), [], device="cpu",
+                mesh=mesh_lib.make_mesh(shape=(1, world)))
+    except NotImplementedError as e:
+        out["template"] = str(e)
     return out
 
 
@@ -204,7 +211,7 @@ def run(case, tmp):
             "template": template(case), "cached_pairs": cached_pairs(case),
             "cached_labels": cached_labels(case), "idle": idle(case),
             "checkpoints": checkpoints(case, tmp), "serving": serving(case),
-            "refusals": refusals(case)}
+            "space_axis": space_axis(case)}
 
 
 def main(rank, world, store, tmp):

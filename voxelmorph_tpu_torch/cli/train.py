@@ -22,10 +22,13 @@ same flags and its own ``--process-id``:
 Every process draws the same global batches (the generators are seeded
 alike; ``--cache-device`` picks from a stream keyed by the step) and trains
 on its rows, NCCL (gloo with ``--device cpu``) averaging the gradients;
-process 0 writes the checkpoints. ``--spatial-shard`` gives ranks that the
-batch leaves over to the first spatial axis, as in the JAX script; spatial
-sharding itself is not ported, so that raises, and where no rank is left
-over the run is plain data parallelism.
+process 0 writes the checkpoints. ``--spatial-shard`` gives the ranks that
+the batch leaves over to the mesh's 'space' axis where they divide the
+first spatial dim, as in the JAX script: at batch 1 over 2 processes each
+trains the U-Net on its slab of the volumes' first spatial dim (80 of 160
+planes), the ranks exchanging one plane around every convolution, and the
+integration, warps and losses run on the whole field; the step is the one
+process's. Where no rank is left over the run is plain data parallelism.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def parse_args(argv=None):
                         help='optional global-norm gradient clip')
     parser.add_argument('--spatial-shard', action='store_true',
                         help='also shard the first spatial axis across the ranks the batch '
-                             'leaves over (not ported: raises where any are)')
+                             'leaves over')
     parser.add_argument('--steps-per-dispatch', type=int, default=None,
                         help='with --cache-device: train steps per dispatch, whose metrics '
                              'are read once, as their mean (0 = whole epoch)')

@@ -36,6 +36,17 @@ nothing.
 generate per sample from a hypernetwork embedding passed to ``forward``. As in the JAX package
 a hyper block never takes the conv kernel or the lean-dw convolution, so a
 hyper U-Net keeps the contiguous layout in every mode.
+
+Inside a VxmDense forward over a mesh's 'space' axis (``parallel.mesh``)
+the U-Net runs on this rank's slab of the first spatial dim: each block's
+input is widened by one plane of each neighbour's (``halo_exchange``,
+before the block's remat, so that its recomputation runs no collective),
+and the block convolves it without padding that dim on cuDNN, or as a SAME
+convolution cut back to the slab (``drop_halo``) with the conv kernel and
+the lean-dw convolution, rounded as the JAX package rounds the whole
+volume's shape. The slabs end on multiples of the pool windows' product
+(``slab_align``), so the max pools and upsamplings stay on each rank.
+Hyper and strided blocks are not sharded.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv3
+from ..parallel import mesh as mesh_lib
 from ..py.utils import default_unet_features
 
 __all__ = ["Unet", "ConvBlock", "HyperConv", "build_feature_lists", "he_normal_",
@@ -210,13 +222,18 @@ class ConvBlock(nn.Module):
         """The weight in the JAX layout ``(*k, ci, co)``, in ``dtype``."""
         return self.conv.weight.permute(*range(2, self.ndims + 2), 1, 0).to(self.dtype)
 
-    def _flax_conv(self, conv: nn.Module, x: torch.Tensor, strides: int = 1) -> torch.Tensor:
+    def _flax_conv(self, conv: nn.Module, x: torch.Tensor, strides: int = 1,
+                   slab: bool = False) -> torch.Tensor:
         """flax's Conv on cuDNN: the convolution in ``dtype``, then the bias.
         With ``strides`` > 1, SAME padding as XLA places it: ``ceil(n / s)``
-        outputs, the padding's odd voxel at the high end."""
+        outputs, the padding's odd voxel at the high end. With ``slab``, x
+        is a slab widened by a plane of each neighbour's: its first spatial
+        dim is not padded."""
         fn = getattr(F, f"conv{self.ndims}d")
         weight = conv.weight.to(self.dtype)
-        if strides == 1:
+        if slab:
+            out = fn(x, weight, padding=(0,) + (1,) * (self.ndims - 1))
+        elif strides == 1:
             out = fn(x, weight, padding=1)
         else:
             pads = []
@@ -226,8 +243,16 @@ class ConvBlock(nn.Module):
             out = fn(F.pad(x, pads), weight, stride=strides)
         return out + conv.bias.to(self.dtype).view(-1, *([1] * self.ndims))
 
-    def forward(self, x: torch.Tensor, hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hyp: Optional[torch.Tensor] = None,
+                depth: Optional[int] = None) -> torch.Tensor:
+        """The block on ``x`` ``(B, C, *S)``; with ``depth``, x is a rank's
+        slab of a volume whose first spatial dim has ``depth`` planes,
+        widened by one plane of each neighbour's (``Unet`` under spatial
+        sharding), and the output is the slab's."""
         x = x.to(self.dtype)
+        if depth is not None and (self.hyper or self.strides != 1):
+            raise NotImplementedError("spatial sharding of a hyper or strided conv block is "
+                                      "not ported")
         fused = self.include_activation and not self.do_res
         slope = 0.2 if fused else None
         if self.hyper:
@@ -236,28 +261,36 @@ class ConvBlock(nn.Module):
         elif conv3.pallas_conv_enabled() and self.ndims == 3 and self.strides == 1 \
                 and x.dim() == 5:
             nbytes = x.element_size()
-            takes = conv3.jax_kernel_takes(x.shape[1], self.conv.out_channels, *x.shape[2:],
-                                           nbytes, nbytes)
-            out = conv3.conv3_same_cf(x, self._jax_kernel(), self.conv.bias.to(self.dtype),
-                                      act_slope=slope, round_conv_first=not takes)
+            takes = conv3.jax_kernel_takes(x.shape[1], self.conv.out_channels,
+                                           depth or x.shape[2], *x.shape[3:], nbytes, nbytes)
+            out = _slab_of(conv3.conv3_same_cf(x, self._jax_kernel(),
+                                               self.conv.bias.to(self.dtype), act_slope=slope,
+                                               round_conv_first=not takes), depth)
         elif conv3.xla_dw_einsum_enabled() and self.strides == 1:
-            out = conv3.conv3_same_lean_dw(x.movedim(1, -1), self._jax_kernel(),
-                                           self.conv.bias.to(self.dtype), slope).movedim(-1, 1)
+            out = _slab_of(conv3.conv3_same_lean_dw(
+                x.movedim(1, -1), self._jax_kernel(), self.conv.bias.to(self.dtype),
+                slope).movedim(-1, 1), depth)
         else:
-            out = self._flax_conv(self.conv, x, self.strides)
+            out = self._flax_conv(self.conv, x, self.strides, depth is not None)
             fused = False
         if fused:
             return out
         if self.do_res:
             if not hasattr(self, "resfix"):
-                out = out + x
+                out = out + _slab_of(x, depth)
             elif self.hyper:
                 out = out + self.resfix(x, hyp)
             else:
-                out = out + self._flax_conv(self.resfix, x)
+                out = out + self._flax_conv(self.resfix, x, slab=depth is not None)
         if self.include_activation:
             out = leaky_relu(out, 0.2)
         return out
+
+
+def _slab_of(x: torch.Tensor, depth: Optional[int]) -> torch.Tensor:
+    """A SAME convolution's output (or input) on a slab widened by a plane
+    of each neighbour's, cut back to the slab (``depth`` given); else x."""
+    return x if depth is None else mesh_lib.drop_halo(x, 1, 2)
 
 
 def _upsample_nearest(x: torch.Tensor, factor: int, ndims: int,
@@ -414,15 +447,30 @@ class Unet(nn.Module):
                        not (final_act and num == len(self.final_convs) - 1))
         self.out_features = ch
 
+    @property
+    def slab_align(self) -> int:
+        """The product of the encoder's pool windows: the unit of the slabs
+        of a spatially sharded forward, so that no pool straddles two."""
+        return int(np.prod(self.max_pool[:self.nb_levels - 1]))
+
     def _block(self, name: str, x: torch.Tensor,
                hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The conv block ``name`` on ``x`` (and the embedding ``hyp`` of a
         hyper U-Net), rematerialised in the backward when ``remat`` and
-        autograd records."""
+        autograd records. Under spatial sharding the slab is widened by its
+        neighbours' planes first, outside the remat."""
         block = getattr(self, name)
+        depth = None
+        space = mesh_lib.current_space()
+        if space is not None:
+            if self.hyper:
+                raise NotImplementedError("spatial sharding of a hyper U-Net is not ported")
+            depth = space.extent(x.shape[2])[0]
+            x = mesh_lib.halo_exchange(x, 1, 2, space)
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, hyp, use_reentrant=False, preserve_rng_state=False)
-        return block(x, hyp)
+            return checkpoint(block, x, hyp, depth, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block(x, hyp, depth)
 
     def forward(self, x: torch.Tensor, hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.hyper and hyp is None:

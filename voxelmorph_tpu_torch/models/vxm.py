@@ -27,6 +27,7 @@ from torch import nn
 from ..ops import warp as warp_ops
 from ..ops.affine import is_affine_shape, rescale_affine
 from ..ops.warp_bounded import MAX_CHANNELS as _MAX_WARP_CHANNELS
+from ..parallel import mesh as mesh_lib
 from ..parallel.mesh import draw_rows
 from .unet import Unet
 
@@ -146,17 +147,49 @@ class VxmDense(nn.Module):
                 self.log_sigma.weight.normal_(0.0, 1e-10, generator=generator)
                 self.log_sigma.bias.fill_(-10.0)
 
+    @property
+    def slab_align(self) -> int:
+        """The unit, in planes, of the slabs of a spatially sharded forward
+        (the U-Net's ``slab_align``); ``shard_batch(spatial=True)`` takes it
+        as ``align``."""
+        return self.unet.slab_align
+
+    def _slabs_forward(self, source, target, hyp, outputs):
+        """The U-Net and the flow heads: ``(flow, logsigma or None, source,
+        target)``, channels-last. Inside ``parallel.mesh.spatial`` the
+        inputs are this rank's slabs; the heads convolve the U-Net's slab
+        widened by its neighbours' planes, and the fields and images come
+        back whole on every rank of the data row (``gather_space``)."""
+        with mesh_lib.slabs(self.inshape[0], self.slab_align) as space:
+            if space is not None and source.shape[1] != space.hi - space.lo:
+                raise ValueError(
+                    f"a slab of {source.shape[1]} planes where this rank's slab of "
+                    f"{self.inshape[0]} is {space.lo}:{space.hi}: shard the inputs with "
+                    f"shard_batch(spatial=True, align={self.slab_align})")
+            x = self.unet(torch.cat([source, target], dim=-1).movedim(-1, 1), hyp).float()
+            outputs["unet_out"] = x.movedim(1, -1)
+            conv = getattr(F, f"conv{self.ndims}d")
+            padding = 1
+            if space is not None:
+                x = mesh_lib.halo_exchange(x, 1, 2, space)
+                padding = (0,) + (1,) * (self.ndims - 1)
+            heads = [conv(x, head.weight, head.bias, padding=padding) for head in
+                     [self.flow] + ([self.log_sigma] if self.use_probs else [])]
+            fields = (torch.cat(heads, dim=1) if self.use_probs else heads[0]).movedim(1, -1)
+            if space is not None:
+                fields = mesh_lib.gather_space(fields, 1, space)
+                images = mesh_lib.gather_space(torch.cat([source, target], dim=-1), 1, space)
+                source, target = images.split([source.shape[-1], target.shape[-1]], dim=-1)
+        flow, logsigma = (fields.split(self.ndims, dim=-1) if self.use_probs
+                          else (fields, None))
+        return flow, logsigma, source, target
+
     def forward(self, source: torch.Tensor, target: torch.Tensor,
                 hyp: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> dict:
-        x = torch.cat([source, target], dim=-1).movedim(-1, 1)
-        x = self.unet(x, hyp).float()
-        outputs = {"unet_out": x.movedim(1, -1)}
-        conv = getattr(F, f"conv{self.ndims}d")
-        flow = conv(x, self.flow.weight, self.flow.bias, padding=1).movedim(1, -1)
+        outputs = {}
+        flow, logsigma, source, target = self._slabs_forward(source, target, hyp, outputs)
         if self.use_probs:
-            logsigma = conv(x, self.log_sigma.weight, self.log_sigma.bias,
-                            padding=1).movedim(1, -1)
             outputs["flow_params"] = torch.cat([flow, logsigma], dim=-1)
             if self.training:
                 eps = sample_normal(flow.shape, generator, flow.device)
