@@ -260,7 +260,21 @@ Phases:
      phases) one process per card over NCCL: phase 4's step spatially
      sharded on (1, N) in cuDNN and conv-kernel mode and data-parallel on
      (N, 1) at batch N, SP_NCCL_STEPS steps each, held to one card as 15a
-     holds its steps, with s per step and peak memory beside one card's.
+     holds its steps, with s per step and peak memory beside one card's;
+  16. every other model class spatially sharded over two processes on the
+     card over gloo in one launch (chip_smoke.py --sp16-rank R --sp-dir
+     DIR), a (1, 2) mesh: one step of each class's recipe at 160x192x224
+     from its seed (phases 5, 6, 8, 8b, 9 in conv-kernel mode, 10, 11's
+     HyperMorph checkpoint re-targeted, 12d's SynthMorph in float32 and in
+     bfloat16, and HyperVxmJoint at 13c's widths) held to one process's
+     step from the same params and Adam state, run by rank 0 once both
+     ranks freed the card: the loss within 1e-5, the gradients within
+     DP_GRAD_RTOL of each tensor's max (the bfloat16 step's as far from
+     one process's float32 gradients as SP16_BF16_COST_FACTOR times one
+     process's bfloat16 ones at most), the params as 15a holds them, the
+     ranks bit-equal (a digest of every parameter's bits), each rank's
+     work counters one process's and each rank's peak memory within the
+     DDP buckets of one process's.
 It prints a JSON line of kernel results and, last, a JSON line with the
 device. Any failure prints a traceback and exits non-zero without that line.
 Nothing is written to the repository except the kernel build directory.
@@ -5157,6 +5171,359 @@ def spatial_nccl(smi, world):
     return summary
 
 
+# spatial sharding of every other model class (phase 16): the classes in the
+# order of the run, each trained by the recipe of the phase named beside it;
+# HyperVxmJoint at 13c's cut widths (JOINT_CUT): at its defaults each of two
+# ranks would hold ~18 GiB of params, gradients, DDP buckets and Adam state
+# and ~20 GiB of activations (the deformable stage's 256-wide maps on
+# 40x96x112 slabs, twice), which two ranks on one 80 GB card do not fit;
+# how long the spawned ranks may take
+SP16_CLASSES = {"semisupervised": "5", "pointcloud": "6", "template": "8",
+                "cond_template": "8b", "prob_atlas": "9, conv kernel", "instance": "10",
+                "hyper": "11", "synthmorph_float32": "12d, float32",
+                "synthmorph": "12d, bfloat16", "joint": "13c's widths"}
+SP16_RANK_TIMEOUT_S = 700
+SP16_LOSS_RTOL = 1e-5
+# a bfloat16 step: each rank's weight gradient is its slab's part rounded to
+# bfloat16 (cuDNN's output type), and the hook adds the rounded parts where
+# one process rounds one sum (as JAX's GSPMD reduces its partial bfloat16
+# gradients); each slab's edge planes also add their input gradient in two
+# rounded parts. So the sharded step is a bfloat16 evaluation of the
+# gradient with more roundings than one process's: measured on an NVIDIA
+# H100 80GB HBM3 at 700 W, 0.155 of dec_conv_0_0.conv.weight's largest
+# entry from one process's bfloat16 gradient, and 2.4 times as far from the
+# float32 gradient in L2 over every tensor (6.91e-3 against 2.91e-3, the
+# float32 gradient's norm 5.58e-2). Each tensor's distance to one process's
+# float32 gradient is held to this many times one process's bfloat16
+# gradient's, what bfloat16 itself costs that tensor (measured: at most
+# 3.27 times, dec_conv_2_0.conv.bias); a slab's part of a gradient lost
+# would move it by about half its size, 7 to 12 times that cost on the
+# worst tensors. Its params are not held: Adam's first update of a weight
+# whose bfloat16 gradient is of the order of its eps (1e-8; these
+# gradients are 1e-7 at most) follows that gradient's rounded size
+SP16_BF16_COST_FACTOR = 4.0
+
+
+def sp16_batches():
+    """Phase 16's batches, made once on the card: {class: (inputs, targets,
+    extras)}, with the template's atlas (the pair's other image, as phase
+    8's --init-template) and the instance flow's warm start (the committed
+    checkpoint's preintegrated flow for the pair, as cli/train_instance's
+    --model) among the extras."""
+    moving, fixed = smooth_pair(INSHAPE, "cuda")
+    zero = torch.zeros((1, *INSHAPE, 3), device="cuda")
+    out = {"semisupervised": (*semi_batch(INSHAPE, "cuda"), {})}
+    with tempfile.TemporaryDirectory() as tmp:
+        pointcloud_files(tmp, INSHAPE, "cuda")
+        out["pointcloud"] = (*next(pointcloud_generator(tmp, "cuda")), {})
+    out["template"] = (*template_targets(moving), {"atlas": fixed})
+    pheno = torch.from_numpy(np.random.default_rng(SEED + 11).standard_normal(
+        (1, PHENO_FEATS), dtype=np.float32)).cuda()
+    out["cond_template"] = ((pheno, torch.zeros_like(moving), moving),
+                            (moving, zero, zero, zero), {})
+    atlas = prob_atlas(moving, PROB_CLASSES, SEED + 12)
+    out["prob_atlas"] = ((fixed * (fixed > 0.2), atlas), (atlas, zero), {})
+    with torch.no_grad():
+        flow = load_model(str(CHECKPOINT), device="cuda")(moving, fixed)["preint_flow"].float()
+    out["instance"] = ((moving,), (fixed, torch.zeros_like(flow)), {"flow": flow})
+    out["hyper"] = (*hyper_batch(moving, fixed, [0.5]), {})
+    maps = synth_label_maps(INSHAPE, 2, synth_labels().in_label_list, "cuda")
+    out["synthmorph"] = out["synthmorph_float32"] = (
+        (maps[0][None, ..., None], maps[1][None, ..., None]), (torch.zeros(1, device="cuda"),),
+        {})
+    hyp = torch.full((1, 1), JOINT_HYPER, device="cuda")
+    out["joint"] = ((hyp, moving, fixed), (fixed, zero), {})
+    return {k: tuple(_cpu_tree(list(part)) if isinstance(part, tuple) else _cpu_tree(part)
+                     for part in v) for k, v in out.items()}
+
+
+def sp16_model(key, extras):
+    """Phase 16's model of class ``key`` on the card from its recipe's seed:
+    (model, loss terms, conv-kernel mode, learning rate)."""
+    if key == "semisupervised":
+        return (*semi_recipe(INSHAPE), False, 1e-4)
+    if key == "pointcloud":
+        return (*pointcloud_recipe(INSHAPE), False, 1e-4)
+    if key == "template":
+        return (*template_recipe(INSHAPE, atlas=extras["atlas"]), False, 1e-4)
+    if key == "cond_template":
+        return (ConditionalTemplateCreation(INSHAPE, (PHENO_FEATS,), conv_nb_features=4,
+                                            extra_conv_layers=3,
+                                            generator=torch.Generator().manual_seed(SEED)),
+                cond_template_terms("ncc"), False, 1e-4)
+    if key == "prob_atlas":
+        return (*prob_recipe(INSHAPE), True, 1e-4)
+    if key == "instance":
+        # cli/train_instance's model and losses, warm-started as its --model
+        model = InstanceDense(INSHAPE, generator=torch.Generator().manual_seed(SEED))
+        model.set_flow(extras["flow"])
+        return (model, [LossTerm("y_source", losses.MSE().loss, weight=1.0, target_index=0),
+                        LossTerm("reg", losses.Grad("l2", loss_mult=2).loss, weight=0.01,
+                                 target_index=1, name="grad")], False, INSTANCE_LR)
+    if key == "hyper":
+        model = resolve_registration_model(load_model(str(HYPER_CHECKPOINT), device="cuda"),
+                                           inshape=INSHAPE)
+        return model.train(), hypermorph_terms("mse", 0.05, 2), False, 1e-4
+    if key.startswith("synthmorph"):
+        cfg = synth_config(INSHAPE, SYNTH_OUT_LABELS)
+        dtype = torch.float32 if key == "synthmorph_float32" else torch.bfloat16
+        return (SynthMorphDense(cfg, nb_unet_features=[[64] * 4, [64] * 6], int_steps=5,
+                                int_resolution=2, svf_resolution=2, dtype=dtype,
+                                shared_contrast=0.5,
+                                generator=torch.Generator().manual_seed(SEED)),
+                synth_recipe_terms(), False, 1e-4)
+    if key == "joint":
+        model = HyperVxmJoint(INSHAPE, return_moved=True, **JOINT_CUT,
+                              generator=torch.Generator("cuda").manual_seed(SEED))
+        return (model, [LossTerm("moved_1", losses.MSE().loss, target_index=0),
+                        LossTerm("svf_1", losses.Grad("l2").loss, weight=0.01, target_index=1,
+                                 name="grad")], False, 1e-4)
+    raise KeyError(key)
+
+
+def sp16_digest(model):
+    """Each parameter's bits folded into one int64 (a position-weighted sum
+    of its float32 words, wrapping), on the CPU: two ranks' digests are
+    equal where their params are bit-equal, and differ otherwise but by a
+    chance of about 2^-64."""
+    out = []
+    for p in model.parameters():
+        words = p.detach().float().contiguous().view(torch.int32).flatten().long()
+        weight = torch.arange(words.numel(), device=words.device) * 2654435761 + 40503
+        out.append(((words + 1) * weight).sum())
+    return torch.stack(out).cpu()
+
+
+def sp16_step(key, batch, mesh):
+    """One step of class ``key``'s recipe: with ``mesh``, the Trainer's
+    sharded step; without, one process's step as the Trainer takes it (in a
+    world of two, whose Trainer would wrap the model for data parallelism:
+    the loss function, backward and Adam, with the Trainer's generator seeded
+    0, outside any sharded step). Returns the loss, launches, seconds, peak
+    memory and, for rank 0 and the reference, the gradients and params;
+    with ``mesh``, also a digest of the params and the planes of this
+    rank's slab."""
+    from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
+
+    inputs, targets, extras = batch
+    inputs = tuple(a.cuda().float() for a in inputs)
+    targets = tuple(a.cuda() for a in targets)
+    model, terms, conv, lr = sp16_model(key, {k: v.cuda() for k, v in extras.items()})
+    rank = mesh_lib.world()[0]
+    with deterministic_cudnn(), conv_kernel_mode(conv):
+        if mesh is not None:
+            trainer = Trainer(model, terms, lr=lr, device="cuda", mesh=mesh)
+            trainer.init()
+            step = lambda: trainer.train_step(inputs, targets)["loss"]  # noqa: E731
+        else:
+            model = model.to("cuda").train()
+            opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+            loss_fn = make_loss_fn(model, terms)
+            generator = torch.Generator(device="cuda").manual_seed(0)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                with stream_step(model):
+                    loss, _ = loss_fn(inputs, targets, generator)
+                    loss.backward()
+                opt.step()
+                return loss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = step().item()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        out = dict(loss=loss, launches=launches, seconds=seconds,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   param_gib=sum(p.numel() * 4 for p in model.parameters()) / 2 ** 30)
+        if mesh is None or rank == 0:
+            out["grads"] = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+            out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        if mesh is not None:
+            out["digest"] = sp16_digest(model)
+            # the planes of this rank's slab of the volume the model cuts
+            lo, hi = mesh_lib.slab_bounds(model.slab_depth, 2, model.slab_align)[
+                mesh.position(rank)[1]]
+            out["slab"] = hi - lo
+    return out
+
+
+def sp16_compare(got, ref, float32=None):
+    """The sharded step ``got`` (rank 0's) against one process's ``ref``:
+    the relative loss gap, the largest gradient gap relative to each
+    tensor's largest entry, and the params after it as sp_hold holds them
+    (elements outside DP_RTOL/DP_ATOL of one process's, those among them
+    whose gradients have opposite signs within the steps' gap of zero, and
+    the worst share of the tolerance of the rest). With ``float32``, one
+    process's float32 gradients of a bfloat16 step, also the largest ratio
+    of a tensor's distance to them to one process's bfloat16 gradient's
+    (``bf16_ratio``), and L2 distances over every gradient."""
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_rel, worst_name, bf16_ratio, bf16_rows = 0.0, None, 0.0, []
+    # squared L2 of sharded - one, one - float32, sharded - float32, float32
+    sq = np.zeros(4)
+    outside, undetermined, worst = 0, 0, 0.0
+    for n, r in ref["grads"].items():
+        g = got["grads"][n]
+        rel = ((g - r).abs().max() / r.abs().max()).item() if r.abs().max() > 0 else float(
+            (g - r).abs().max() > 0)
+        if rel > grad_rel:
+            grad_rel, worst_name = rel, n
+        if float32 is not None:
+            f = float32[n]
+            far, cost = (g - f).abs().max().item(), (r - f).abs().max().item()
+            ratio = far / cost if cost else float(far > 0)
+            bf16_ratio = max(bf16_ratio, ratio)
+            bf16_rows.append((ratio, n, far, cost, (g - r).abs().max().item(),
+                              f.abs().max().item()))
+            sq += [float(((g - r) ** 2).sum()), float(((r - f) ** 2).sum()),
+                   float(((g - f) ** 2).sum()), float((f ** 2).sum())]
+        share = (got["params"][n] - ref["params"][n]).abs() / (
+            DP_ATOL + DP_RTOL * ref["params"][n].abs())
+        free = (torch.sign(g) != torch.sign(r)) & (r.abs() <= (g - r).abs().max())
+        outside += int((share > 1).sum())
+        undetermined += int(((share > 1) & free).sum())
+        worst = max(worst, share.masked_fill(free, 0).max().item())
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, worst_grad=worst_name, outside=outside,
+                undetermined=undetermined, worst_share=worst, bf16_ratio=bf16_ratio,
+                # the largest ratios: (ratio, tensor, the distance to
+                # float32, bfloat16's cost, the gap to one process's
+                # bfloat16, max|float32|)
+                bf16_worst=sorted(bf16_rows, reverse=True)[:4],
+                bf16_l2=[float(x) for x in np.sqrt(sq)])
+
+
+def sp16_rank(rank, tmp):
+    """A rank of phase 16 (``chip_smoke.py --sp16-rank R --sp-dir DIR``):
+    every class's sharded step on a (1, 2) mesh of two processes sharing the
+    card over gloo, and on rank 0, after both ranks freed the card, one
+    process's step of the same recipe from the same params and Adam state.
+    Writes DIR/rank{R}.pt: per class its step's readings, and on rank 0 the
+    comparison and the one process's readings."""
+    import datetime
+
+    import torch.distributed as dist
+    from voxelmorph_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # a timeout, so that a rank that fails does not leave the other waiting
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=SP16_RANK_TIMEOUT_S - 60))
+    try:
+        batches = torch.load(os.path.join(tmp, "batches.pt"))
+        mesh = mesh_lib.make_mesh((1, 2))
+        out, float32 = {}, None
+        for key in SP16_CLASSES:
+            got = out[key] = sp16_step(key, batches[key], mesh)
+            digest = got.pop("digest")
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                ref = sp16_step(key, batches[key], None)
+                # the float32 SynthMorph step's gradients, for the bfloat16 one's
+                got.update(sp16_compare(got, ref, float32 if key == "synthmorph" else None))
+                float32 = ref["grads"] if key == "synthmorph_float32" else None
+                got["one_process"] = {k: v for k, v in ref.items()
+                                      if k not in ("grads", "params")}
+                del got["grads"], got["params"], ref
+                torch.cuda.empty_cache()
+            # rank 0's digest less rank 1's
+            mine = digest if rank == 0 else -digest
+            dist.all_reduce(mine)
+            got["ranks_bit_equal"] = bool((mine == 0).all())
+            dist.barrier()
+        out["backend"] = dist.get_backend()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_models(smi):
+    """Phase 16: every model class but VxmDense spatially sharded over two
+    processes on the one card (sp16_rank), each class's sharded step held to
+    one process's step from the same params and Adam state. Returns rank
+    0's launches by class and a summary."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.save(sp16_batches(), os.path.join(tmp, "batches.pt"))
+        torch.cuda.empty_cache()
+        batches_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sp16-rank",
+                                   str(r), "--sp-dir", tmp], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=SP16_RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"16: rank {r} exited with {p.returncode}:\n{out}")
+        ranks_ = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    summary, launches, failed = dict(batches_s=batches_s, ranks_s=ranks_s,
+                                      backend=ranks_[0]["backend"]), {}, []
+    for key, recipe in SP16_CLASSES.items():
+        got = [r[key] for r in ranks_]
+        one = got[0]["one_process"]
+        work = [{k: g["launches"][k] for k in WORK_KEYS} for g in got]
+        ref_work = {k: one["launches"][k] for k in WORK_KEYS}
+        peaks = [round(g["peak_gib"], 3) for g in got]
+        # beyond one process a rank holds DDP's buckets (a copy of the
+        # gradients) and the reduction's copy of one
+        peak_ok = all(g["peak_gib"] <= one["peak_gib"] + 2 * g["param_gib"] for g in got)
+        bf16 = key == "synthmorph"
+        grads_ok = (got[0]["bf16_ratio"] <= SP16_BF16_COST_FACTOR if bf16 else
+                    got[0]["grad_rel"] <= DP_GRAD_RTOL
+                    and got[0]["outside"] == got[0]["undetermined"])
+        ok = (got[0]["loss_rel"] <= SP16_LOSS_RTOL and grads_ok
+              and all(g["ranks_bit_equal"] for g in got) and all(w == ref_work for w in work)
+              and peak_ok)
+        log(f"16, {key} (phase {recipe}'s recipe), (1, 2) mesh, slabs of {got[0]['slab']} and "
+            f"{got[1]['slab']} planes: loss {got[0]['loss']:.8f}, one process's "
+            f"{one['loss']:.8f} (rel {got[0]['loss_rel']:.3e}, tol {SP16_LOSS_RTOL}); "
+            f"gradients within {got[0]['grad_rel']:.3e} of each tensor's max (worst "
+            f"{got[0]['worst_grad']}; tol {DP_GRAD_RTOL}" + (
+                f"; bfloat16: each tensor's distance to one process's float32 gradient "
+                f"within {got[0]['bf16_ratio']:.4f} times one process's bfloat16 gradient's "
+                f"(tol {SP16_BF16_COST_FACTOR}), the largest (ratio, tensor, distance, "
+                f"bfloat16's, the gap to one process's bfloat16, max|float32|) "
+                f"{got[0]['bf16_worst']}; L2 over every gradient: sharded - one process "
+                f"{got[0]['bf16_l2'][0]:.4e}, one process - float32 {got[0]['bf16_l2'][1]:.4e}, "
+                f"sharded - float32 {got[0]['bf16_l2'][2]:.4e}, float32 "
+                f"{got[0]['bf16_l2'][3]:.4e}; params not held"
+                if bf16 else "") + "); params after the step: "
+            f"{got[0]['outside']} elements outside rtol {DP_RTOL}, atol {DP_ATOL}, of which "
+            f"{got[0]['undetermined']} have gradients of opposite sign within the steps' gap "
+            f"of zero, the rest at {got[0]['worst_share']:.3f} of the tolerance; the ranks "
+            f"bit-equal {[g['ranks_bit_equal'] for g in got]}; launches per rank {work}, one "
+            f"process {ref_work}; s per step {[round(g['seconds'], 4) for g in got]} (one "
+            f"process {one['seconds']:.4f}; gloo through the host); peak memory allocated per "
+            f"rank {peaks} GiB, one process {one['peak_gib']:.3f} GiB, params "
+            f"{got[0]['param_gib']:.3f} GiB; {smi}")
+        for r, g in enumerate(got):
+            check_warp_work(g["launches"], f"16, {key}, rank {r}")
+        if not ok:
+            failed.append(key)
+        launches[key] = got[0]["launches"]
+        summary[key] = dict(
+            {k: got[0][k] for k in ("loss_rel", "grad_rel", "outside", "undetermined",
+                                    "worst_share", "bf16_ratio", "slab")},
+            peak_gib=peaks, one_process_peak_gib=one["peak_gib"],
+            s_per_step=[g["seconds"] for g in got], one_process_s=one["seconds"])
+    log(f"16: batches {batches_s:.2f} s, the two ranks {ranks_s:.2f} s")
+    if failed:
+        raise AssertionError(f"16: the sharded steps of {failed} differ from one process's")
+    return launches, summary
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5185,6 +5552,7 @@ def main(argv=None) -> int:
     parser.add_argument("--sp-world", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--sp-dir", help=argparse.SUPPRESS)
     parser.add_argument("--sp-nccl", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--sp16-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--nccl-ranks", type=int, metavar="N",
                         help="instead of the smoke run: phase 15c alone, phase 4's step "
                              "spatially sharded over N cards and data-parallel over them, "
@@ -5199,6 +5567,9 @@ def main(argv=None) -> int:
         return 0
     if args.sp_rank is not None:  # a rank that phase 15 started
         sp_rank(args.sp_rank, args.sp_world, args.sp_dir, args.sp_nccl)
+        return 0
+    if args.sp16_rank is not None:  # a rank that phase 16 started
+        sp16_rank(args.sp16_rank, args.sp_dir)
         return 0
     # the serving path's own halo rule and conv dispatch, whatever the
     # environment says
@@ -5412,6 +5783,10 @@ def main(argv=None) -> int:
     log(f"phase 15b: {time.perf_counter() - t:.2f} s; phase 15: "
         f"{time.perf_counter() - t15:.2f} s")
 
+    t = phase("16. spatial sharding of every other model class over two processes")
+    sp16, sp16_summary = spatial_models(smi)
+    log(f"phase 16: {time.perf_counter() - t:.2f} s")
+
     paths = {"register": launches, "train_step": train_launches,
              "register_conv": conv_launches, "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
@@ -5453,7 +5828,9 @@ def main(argv=None) -> int:
              "train_step_spatial": sp_two["cudnn"], "train_step_spatial_conv": sp_two["conv"],
              "register_spatial": sp_two["register"],
              "train_step_spatial_four_ranks": sp_four["row"],
-             "train_step_spatial_two_by_two": sp_four["grid"]}
+             "train_step_spatial_two_by_two": sp_four["grid"],
+             # rank 0's sharded step of each other model class on (1, 2)
+             **{f"train_step_spatial_{key}": n for key, n in sp16.items()}}
     serving, serving_bwd = rows[0], bwd_rows[0]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
@@ -5550,7 +5927,8 @@ def main(argv=None) -> int:
         data_parallel=dict(
             one_rank={k: v for k, v in dp_one.items() if "launches" not in k},
             two_ranks={k: v for k, v in dp_two.items() if k != "launches"}),
-        spatial=dict(two_ranks=sp_two_summary, four_ranks=sp_four_summary),
+        spatial=dict(two_ranks=sp_two_summary, four_ranks=sp_four_summary,
+                     other_models=sp16_summary),
         sync_free={("conv_kernel" if k else "cudnn"): v for k, v in sync_free.items()},
         prefetch=prefetch,
         unet_remat={("conv_kernel" if k else "cudnn"): {

@@ -300,11 +300,11 @@ def test_sharded_serving_gathers_one_process(runs):
 
 
 def test_space_axis_refused(runs):
-    """The 'space' axis is refused only to models outside the slice: over
-    two ranks a (1, 2) mesh, and --spatial-shard at batch 1, train a
-    VxmDense on slabs as one rank trains it whole; where the batch leaves no
-    rank over, --spatial-shard trains data-parallel, as in JAX; a
-    TemplateCreation on a (1, 2) mesh raises, naming itself."""
+    """The 'space' axis is refused only to models without the slab
+    protocol: over two ranks a (1, 2) mesh, and --spatial-shard at batch 1,
+    train a VxmDense on slabs as one rank trains it whole; where the batch
+    leaves no rank over, --spatial-shard trains data-parallel, as in JAX; a
+    user's module on a (1, 2) mesh raises, naming itself."""
     got, one = runs[2]["space_axis"], runs[1]["space_axis"]
     assert got["spatial_shard_mesh_1"] == {"data": 1, "space": 2}
     assert one["spatial_shard_mesh_1"] == {"data": 1, "space": 1}
@@ -315,8 +315,8 @@ def test_space_axis_refused(runs):
     np.testing.assert_allclose(got["spatial_shard"], one["spatial_shard"], rtol=LOSS_RTOL)
     assert got["spatial_shard_mesh"] == {"data": 2, "space": 1}
     assert np.isfinite(got["spatial_shard_dp"]).all()
-    assert "of TemplateCreation is not ported" in got["template"]
-    assert "template" not in one  # a mesh of one rank shards nothing
+    assert "of _UsersModule is not ported" in got["refused"]
+    assert "refused" not in one  # a mesh of one rank shards nothing
     # in one process: a grid of two ranks that the world lacks, and the spec
     mesh = mesh_lib.make_mesh(shape=(1, 2), devices=[0, 1])
     with pytest.raises(ValueError, match="holds every rank of the world"):

@@ -441,34 +441,40 @@ def test_gather_space_on_threads():
     assert torch.equal(torch.cat([grad for _, grad in results], 1), g)
 
 
-def _outside_models():
-    shape = (16, 16, 16)
-    feats = [[4], [4, 4]]
-    cfg = models.LabelsToImageConfig(shape, [0, 1, 2, 3])
+class _UsersModule(torch.nn.Module):
+    """A model of the user's own, with no slab protocol."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv3d(2, 3, 3, padding=1)
+
+    def forward(self, source, target, generator=None):
+        return {"flow": self.conv(torch.cat([source, target], -1).movedim(-1, 1))}
+
+
+def _refused():
+    feats = [[4, 4, 4], [4, 4, 4, 4]]  # three pools: slabs in units of 8 planes
     return {
-        "TemplateCreation": lambda: models.TemplateCreation(shape, nb_unet_features=feats),
-        "ConditionalTemplateCreation": lambda: models.ConditionalTemplateCreation(
-            shape, (2,), nb_unet_features=feats),
-        "ProbAtlasSegmentation": lambda: models.ProbAtlasSegmentation(
-            shape, 2, nb_unet_features=feats),
-        "HyperVxmDense": lambda: models.HyperVxmDense(shape, nb_unet_features=feats),
-        "a hyper VxmDense": lambda: models.VxmDense(shape, nb_unet_features=feats, hyper=True),
-        "VxmDenseSemiSupervisedSeg": lambda: models.VxmDenseSemiSupervisedSeg(
-            shape, 2, nb_unet_features=feats),
-        "VxmDenseSemiSupervisedPointCloud": lambda: models.VxmDenseSemiSupervisedPointCloud(
-            shape, 10, 1, nb_unet_features=feats),
-        "InstanceDense": lambda: models.InstanceDense(shape),
-        "SynthMorphDense": lambda: models.SynthMorphDense(cfg, nb_unet_features=feats),
-        "HyperVxmJoint": lambda: models.HyperVxmJoint(
-            shape, int_steps=2, hyp_units=(4,), enc_nf=(4, 4), dec_nf=(4, 4), add_nf=(4,),
-            aff_num_feat=4, aff_enc_nf=(4,)),
+        "_UsersModule": (NotImplementedError, "of _UsersModule is not ported: the model has "
+                         "no slab protocol", _UsersModule),
+        "Transform": (NotImplementedError, "of Transform is not ported", models.Transform),
+        "a VxmDense too thin": (ValueError, "--spatial-shard", lambda: models.VxmDense(
+            (8, 16, 16), nb_unet_features=feats)),
+        # its slabs cut the half-resolution pair, 8 of 16 planes, in units
+        # of 2 ** 3
+        "a HyperVxmJoint too thin": (ValueError, "needs at least 16 planes", lambda: (
+            models.HyperVxmJoint((16, 16, 16), int_steps=2, hyp_units=(4,), enc_nf=(4, 4, 4),
+                                 dec_nf=(4, 4, 4), add_nf=(4,), aff_num_feat=4,
+                                 aff_enc_nf=(4,)))),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_outside_models()))
+@pytest.mark.parametrize("name", sorted(_refused()))
 def test_models_outside_the_slice_raise(name):
-    """A mesh whose 'space' axis is > 1 refuses every model but VxmDense,
-    naming it (ROADMAP lists them as still to port)."""
+    """A mesh whose 'space' axis is > 1 refuses a model without the slab
+    protocol (slab_inputs, slab_depth, slab_align, whole_parameters),
+    naming it, and a volume too thin for the slabs of a model that has it."""
+    error, message, make = _refused()[name]
     mesh = mesh_lib.make_mesh((1, 2), devices=[0, 1])
-    with pytest.raises(NotImplementedError, match=f"of {name} is not ported"):
-        Trainer(_outside_models()[name](), [], device="cpu", mesh=mesh)
+    with pytest.raises(error, match=message):
+        Trainer(make(), [], device="cpu", mesh=mesh)

@@ -179,8 +179,8 @@ def space_axis(case):
     """A mesh whose 'space' axis takes every rank, and --spatial-shard at
     batch 1 (the rank left over goes to 'space'), each one step of a
     VxmDense on slabs of the first spatial dim; --spatial-shard at a batch
-    that leaves no rank over is data-parallel; a model outside the slice
-    (TemplateCreation) raises."""
+    that leaves no rank over is data-parallel; a model without the slab
+    protocol (a user's module) raises."""
     out = {}
     world = mesh_lib.world()[1]
     (src, trg), (_, zero) = case["batch8"]
@@ -198,11 +198,18 @@ def space_axis(case):
                                     (trg[:world], zero[:world]), n=1)
     out["spatial_shard_mesh"] = dict(trainer.mesh.shape)
     try:
-        Trainer(TemplateCreation(SHAPE, nb_unet_features=FEATS), [], device="cpu",
-                mesh=mesh_lib.make_mesh(shape=(1, world)))
+        Trainer(_UsersModule(), [], device="cpu", mesh=mesh_lib.make_mesh(shape=(1, world)))
     except NotImplementedError as e:
-        out["template"] = str(e)
+        out["refused"] = str(e)
     return out
+
+
+class _UsersModule(torch.nn.Module):
+    """A model of the user's own, with no slab protocol."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv3d(2, 3, 3, padding=1)
 
 
 def run(case, tmp):

@@ -20,9 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as mesh_lib
 from ..parallel.mesh import batch_mean
-from .unet import ConvBlock, lecun_normal_
-from .vxm import VxmDense
+from .unet import ConvBlock, lecun_normal_, slab_block
+from .vxm import VxmDense, VxmSlabs
 
 __all__ = ["MeanStream", "TemplateCreation", "ConditionalTemplateCreation",
            "ProbAtlasSegmentation", "stream_step"]
@@ -116,7 +117,7 @@ def _flax_conv(ndims: int, cin: int, cout: int, k: int, generator, weak: Optiona
     return conv
 
 
-class TemplateCreation(nn.Module):
+class TemplateCreation(VxmSlabs, nn.Module):
     """Unconditional deformable template: a learnable atlas registered
     bidirectionally to each scan.
 
@@ -127,7 +128,18 @@ class TemplateCreation(nn.Module):
     'mean_stream', ``MeanStream`` of neg_flow. In a train step the atlas's
     gradient comes from the backward of the full-resolution warp of the
     atlas (the tiered warp's dvol).
+
+    Over a mesh's 'space' axis the scan arrives as this rank's slab and the
+    atlas, whole on every rank, enters the U-Net as its slab
+    (``parallel.mesh.slab_of``); its gradient, whole on each rank, is
+    averaged over 'space' (``whole_parameters``). MeanStream folds in the
+    whole neg_flow.
     """
+
+    slab_inputs = (0,)
+
+    def whole_parameters(self):
+        return [self.atlas]
 
     def __init__(self, inshape: Sequence[int], nb_unet_features=None, mean_cap: float = 100.0,
                  atlas_feats: int = 1, src_feats: int = 1, int_steps: int = 7,
@@ -150,7 +162,7 @@ class TemplateCreation(nn.Module):
 
     def forward(self, source: torch.Tensor, generator: Optional[torch.Generator] = None) -> dict:
         atlas_b = self.atlas.expand(source.shape[0], *self.atlas.shape[1:])
-        out = self.vxm(atlas_b, source, generator=generator)
+        out = self.vxm(self.vxm.slab(atlas_b), source, generator=generator)
         out["atlas"] = self.atlas
         out["atlas_tensor"] = atlas_b
         out["mean_stream"] = self.mean_stream(out["neg_flow"])
@@ -169,7 +181,7 @@ class TemplateCreation(nn.Module):
         return self.atlas.detach().cpu().numpy().squeeze()
 
 
-class ConditionalTemplateCreation(nn.Module):
+class ConditionalTemplateCreation(VxmSlabs, nn.Module):
     """Conditional template: a phenotype vector generates an atlas residual
     added to a base atlas, then registered as in ``TemplateCreation``.
 
@@ -184,7 +196,18 @@ class ConditionalTemplateCreation(nn.Module):
     ``forward(pheno, atlas, source, generator=None)`` returns the
     ``VxmDense`` outputs of ``atlas + atlas_gen`` against ``source``, plus
     'atlas_tensor' and, with ``use_mean_stream``, 'mean_stream'.
+
+    Over a mesh's 'space' axis the scan arrives as this rank's slab; the
+    phenotype, the base atlas and the decoder stay whole on every rank, and
+    the atlas tensor enters the U-Net as its slab (``parallel.mesh.slab_of``):
+    the decoder's gradients, whole on each rank, are averaged over 'space'
+    (``whole_parameters``).
     """
+
+    slab_inputs = (2,)
+
+    def whole_parameters(self):
+        return [p for name, p in self.named_parameters() if not name.startswith("vxm.")]
 
     def __init__(self, inshape: Sequence[int], pheno_input_shape: Sequence[int],
                  nb_unet_features=None, src_feats: int = 1, atlas_feats: Optional[int] = None,
@@ -261,7 +284,7 @@ class ConditionalTemplateCreation(nn.Module):
         for n in range(self.extra_conv_layers):
             x = _same_conv(getattr(self, f"atlas_extra_conv_{n}"), x)
         atlas_tensor = atlas + _same_conv(self.atlas_gen, x).movedim(1, -1)
-        out = self.vxm(atlas_tensor, source, generator=generator)
+        out = self.vxm(self.vxm.slab(atlas_tensor), source, generator=generator)
         out["atlas_tensor"] = atlas_tensor
         if self.use_mean_stream:
             out["mean_stream"] = self.mean_stream(out["neg_flow"])
@@ -273,7 +296,7 @@ def _normal_log_prob(x: torch.Tensor, mu: torch.Tensor, logsigmasq: torch.Tensor
     return -0.5 * (math.log(2 * math.pi) + logsigmasq) - 0.5 * (x - mu) ** 2 / torch.exp(logsigmasq)
 
 
-class ProbAtlasSegmentation(nn.Module):
+class ProbAtlasSegmentation(VxmSlabs, nn.Module):
     """Atlas-based Bayesian segmentation.
 
     A ``VxmDense`` (``self.vxm``, ``src_feats=nb_labels``) warps a
@@ -289,7 +312,33 @@ class ProbAtlasSegmentation(nn.Module):
     'uloglhood', 'stat_mu', 'stat_logssq' and 'warped_atlas'.
     ``image_feats`` is the image's channel count (the JAX module reads it
     from its input); a config names it only when it is not 1.
+
+    Over a mesh's 'space' axis the image and the atlas arrive whole and
+    enter the U-Net as this rank's slabs (``parallel.mesh.slab_of``). The
+    stat ConvBlocks run on slabs, widened by a plane of each neighbour's as
+    the U-Net's blocks are: of ``unet_out``, or with ``stat_post_warp`` of
+    the whole warped atlas and image. The VALID convs run on the widened
+    slabs too, and their outputs, whose extents are not the slabs', are
+    gathered at their own offsets before the global max. Every parameter's
+    gradient on a rank is its slab's part (no ``whole_parameters``).
     """
+
+    slab_inputs = ()
+
+    def _valid(self, conv: nn.Module, x: torch.Tensor, space) -> torch.Tensor:
+        """The VALID conv ``conv`` of the stat volume ``x`` ``(B, C, *S)``,
+        whole on every rank of the row; inside ``slabs``, x is this rank's
+        slab: the conv runs on it widened by a plane of each neighbour's,
+        the planes centred on a face of the volume are dropped, and the
+        parts are gathered at their offsets in the VALID output."""
+        if space is None:
+            return conv(x)
+        n = x.shape[2]
+        total, start = space.extent(n)
+        out = conv(mesh_lib.halo_exchange(x, 1, 2, space))
+        first, last = space.index == 0, space.index == space.size - 1
+        out = out.narrow(2, int(first), n - int(first) - int(last))
+        return mesh_lib.gather_space(out, 2, space, extent=(total - 2, start - 1 + int(first)))
 
     def __init__(self, inshape: Sequence[int], nb_labels: int, nb_unet_features=None,
                  nb_unet_conv_per_level: int = 1, init_mu=None, init_sigma=None,
@@ -333,18 +382,21 @@ class ProbAtlasSegmentation(nn.Module):
     def forward(self, image: torch.Tensor, atlas: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> dict:
         image = image.float()
-        out = self.vxm(atlas, image, generator=generator)
+        out = self.vxm(self.vxm.slab(atlas), self.vxm.slab(image), generator=generator)
         warped_atlas = out["y_source"] if self.warp_atlas else atlas.float()
-        if self.stat_post_warp:
-            combined = torch.cat([warped_atlas, image], dim=-1)
-        else:
-            combined = out["unet_out"]
-        conv = self.stat_conv1(self.stat_conv0(combined.movedim(-1, 1))).float()
-        axes = tuple(range(2, self.ndims + 2))
-        # VALID convs, then a global max: one statistic per label
-        stat_mu = torch.amax(self.mu_vol(conv), dim=axes, keepdim=True).movedim(1, -1)
-        stat_logssq = torch.amax(self.logsigmasq_vol(conv), dim=axes,
+        with mesh_lib.slabs(self.vxm.inshape[0], self.vxm.slab_align) as space:
+            if self.stat_post_warp:
+                combined = self.vxm.slab(torch.cat([warped_atlas, image], dim=-1))
+            else:
+                combined = out["unet_out"]
+            conv = slab_block(self.stat_conv1, slab_block(self.stat_conv0,
+                                                          combined.movedim(-1, 1))).float()
+            axes = tuple(range(2, self.ndims + 2))
+            # VALID convs, then a global max: one statistic per label
+            stat_mu = torch.amax(self._valid(self.mu_vol, conv, space), dim=axes,
                                  keepdim=True).movedim(1, -1)
+            stat_logssq = torch.amax(self._valid(self.logsigmasq_vol, conv, space), dim=axes,
+                                     keepdim=True).movedim(1, -1)
         if self.init_mu is not None:
             stat_mu = self.network_stat_weight * stat_mu + stat_mu.new_tensor(self.init_mu)
         if self.init_sigma is not None:

@@ -15,12 +15,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from .unet import lecun_normal_
-from .vxm import _DTYPES, VxmDense
+from .vxm import _DTYPES, VxmDense, VxmSlabs
 
 __all__ = ["HyperVxmDense"]
 
 
-class HyperVxmDense(nn.Module):
+class HyperVxmDense(VxmSlabs, nn.Module):
     """VxmDense conditioned on hyperparameters through a hypernetwork MLP.
 
     ``hyp_dense_1`` ... ``hyp_dense_{nb_hyp_layers}`` are Linear layers of
@@ -32,6 +32,12 @@ class HyperVxmDense(nn.Module):
     ``hyp`` ``(B, nb_hyp_params)`` and returns VxmDense's outputs plus
     'hyper_val', ``hyp`` itself. The defaults are the reference's: 6 layers
     of 128 units.
+
+    Over a mesh's 'space' axis the source and the target arrive as slabs
+    and the hyper U-Net runs on them. The MLP runs whole on every rank, but
+    its embedding reaches the loss only through the HyperConvs' kernels on
+    the slabs, so its gradient on a rank is its slab's part too, summed
+    over 'space' as the U-Net's (no ``whole_parameters``).
     """
 
     def __init__(self, inshape: Sequence[int], nb_hyp_params: int = 1, nb_hyp_layers: int = 6,

@@ -39,9 +39,10 @@ from ..ops import warp as warp_ops
 from ..ops.image import (barycenter, gaussian_blur, multiscale_noise_draws,
                          multiscale_noise_from_draws, sqrtm)
 from ..ops.interp import interpn_label_onehot, ndgrid
+from ..parallel import mesh as mesh_lib
 from ..parallel.mesh import draw_rows
 from .unet import HyperConv, _upsample_nearest, leaky_relu, lecun_normal_
-from .vxm import _DTYPES, VxmDense
+from .vxm import _DTYPES, VxmDense, VxmSlabs
 
 __all__ = ["LabelsToImageConfig", "labels_to_image", "labels_to_image_draws",
            "labels_to_image_from_draws", "shared_intensity", "SynthMorphDense",
@@ -278,7 +279,7 @@ def labels_to_image(generator: Optional[torch.Generator], label_map: torch.Tenso
     return labels_to_image_from_draws(label_map, cfg, draws, return_warp)
 
 
-class SynthMorphDense(nn.Module):
+class SynthMorphDense(VxmSlabs, nn.Module):
     """A VxmDense trained on pairs synthesized on the device.
 
     ``forward(src_labels, trg_labels, generator=None, draws=None)`` takes
@@ -298,7 +299,16 @@ class SynthMorphDense(nn.Module):
     are injected whole with ``draws``. With ``shared_contrast`` p > 0 the
     second image takes the first's intensity draws with probability p (a
     coin drawn first, kept on the device).
+
+    Over a mesh's 'space' axis the label maps arrive whole, as the
+    synthesis warps, blurs and draws across the volume: every rank of a row
+    synthesizes the whole pair (the same draws: those of the global batch,
+    ``draw``), and the images enter the U-Net as this rank's slabs
+    (``parallel.mesh.slab_of``); ``pred_map`` is warped on the whole field.
+    Every parameter's gradient on a rank is its slab's part.
     """
+
+    slab_inputs = ()
 
     def __init__(self, cfg: LabelsToImageConfig, nb_unet_features=None, int_steps: int = 5,
                  int_resolution: int = 2, svf_resolution: int = 2, dtype=torch.float32,
@@ -357,7 +367,7 @@ class SynthMorphDense(nn.Module):
                 ima_1, map_1 = labels_to_image_from_draws(src_labels, self.cfg, draws["src"])
                 ima_2, map_2 = labels_to_image_from_draws(trg_labels, self.cfg, trg_draws)
 
-        out = self.vxm(ima_1, ima_2, generator=generator)
+        out = self.vxm(self.vxm.slab(ima_1), self.vxm.slab(ima_2), generator=generator)
         out["image_1"], out["image_2"] = ima_1, ima_2
         out["map_1"], out["map_2"] = map_1, map_2
         # the one-hot is data: the warp's backward builds no volume gradient
@@ -618,7 +628,29 @@ class HyperVxmJoint(nn.Module):
     images to their affine mid-space; ``skip_affine`` drops the affine
     stage. The constructor takes the JAX module's fields; ``generator``
     draws the initial weights, on its device.
+
+    Over a mesh's 'space' axis the images arrive whole (the affine warps
+    read anywhere), and the affine stage runs whole on every rank of a row:
+    its gradients, whole on each rank, are averaged over 'space'
+    (``whole_parameters``). The deformable stage runs twice on this rank's
+    slabs of the aligned half-resolution pair (``parallel.mesh.slab_of``,
+    in units of ``2**len(enc_nf)`` planes, its pools' product), each conv on
+    the slab widened by a plane of each neighbour's, and its SVF is
+    gathered whole; its and the MLP's gradients are a slab's part.
     """
+
+    slab_inputs = ()
+
+    @property
+    def slab_align(self) -> int:
+        return 2 ** len(self.enc_nf)
+
+    @property
+    def slab_depth(self) -> int:
+        return self.in_shape[0] // 2
+
+    def whole_parameters(self):
+        return list(self.affine.parameters())
 
     def __init__(self, in_shape: Sequence[int], hyp_units=(32, 32, 32, 32),
                  enc_nf=(256, 256, 256, 256), dec_nf=(256, 256, 256, 256),
@@ -670,24 +702,37 @@ class HyperVxmJoint(nn.Module):
 
     def _def_net(self, x1: torch.Tensor, x2: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """The deformable stage's SVF ``(B, *S, N)`` in float32 from
-        channels-last images ``(B, *S, 1)`` and the embedding ``h``."""
+        channels-last images ``(B, *S, 1)`` and the embedding ``h``; inside
+        ``parallel.mesh.spatial``, on this rank's slabs of the images, the
+        SVF gathered whole."""
         nd = len(self.in_shape)
-        x = torch.cat([x1, x2], dim=-1).movedim(-1, 1)
-        enc = [x]
-        for li in range(len(self.enc_nf)):
-            for ci in range(self.per_level):
-                x = leaky_relu(getattr(self, f"def_enc_{li}_{ci}")(x, h), 0.2)
-            enc.append(x)
-            x = getattr(F, f"max_pool{nd}d")(x, 2, 2)
-        for li in range(len(self.dec_nf)):
-            for ci in range(self.per_level):
-                x = leaky_relu(getattr(self, f"def_dec_{li}_{ci}")(x, h), 0.2)
-            x = torch.cat([_upsample_nearest(x, 2, nd), enc.pop()], dim=1)
-        for li in range(len(self.add_nf)):
-            x = leaky_relu(getattr(self, f"def_add_{li}")(x, h), 0.2)
-        return self.def_flow(x, h).float().movedim(1, -1)
+        with mesh_lib.slabs(self.slab_depth, self.slab_align) as space:
 
-    def forward(self, hyp: torch.Tensor, full_1: torch.Tensor, full_2: torch.Tensor) -> dict:
+            def conv(name, x):
+                if space is None:
+                    return getattr(self, name)(x, h)
+                return getattr(self, name)(mesh_lib.halo_exchange(x, 1, 2, space), h, slab=True)
+
+            x = mesh_lib.slab_of(torch.cat([x1, x2], dim=-1), 1, self.slab_align,
+                                 space).movedim(-1, 1)
+            enc = [x]
+            for li in range(len(self.enc_nf)):
+                for ci in range(self.per_level):
+                    x = leaky_relu(conv(f"def_enc_{li}_{ci}", x), 0.2)
+                enc.append(x)
+                x = getattr(F, f"max_pool{nd}d")(x, 2, 2)
+            for li in range(len(self.dec_nf)):
+                for ci in range(self.per_level):
+                    x = leaky_relu(conv(f"def_dec_{li}_{ci}", x), 0.2)
+                x = torch.cat([_upsample_nearest(x, 2, nd), enc.pop()], dim=1)
+            for li in range(len(self.add_nf)):
+                x = leaky_relu(conv(f"def_add_{li}", x), 0.2)
+            svf = conv("def_flow", x).float().movedim(1, -1)
+            return svf if space is None else mesh_lib.gather_space(svf, 1, space)
+
+    def forward(self, hyp: torch.Tensor, full_1: torch.Tensor, full_2: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """(``generator``: the Trainer's; the model draws nothing.)"""
         shape_full = tuple(self.in_shape)
         shape_half = tuple(s // 2 for s in shape_full)
         nd = len(shape_full)

@@ -37,16 +37,17 @@ generate per sample from a hypernetwork embedding passed to ``forward``. As in t
 a hyper block never takes the conv kernel or the lean-dw convolution, so a
 hyper U-Net keeps the contiguous layout in every mode.
 
-Inside a VxmDense forward over a mesh's 'space' axis (``parallel.mesh``)
+Inside a model's forward over a mesh's 'space' axis (``parallel.mesh``)
 the U-Net runs on this rank's slab of the first spatial dim: each block's
 input is widened by one plane of each neighbour's (``halo_exchange``,
-before the block's remat, so that its recomputation runs no collective),
-and the block convolves it without padding that dim on cuDNN, or as a SAME
-convolution cut back to the slab (``drop_halo``) with the conv kernel and
-the lean-dw convolution, rounded as the JAX package rounds the whole
-volume's shape. The slabs end on multiples of the pool windows' product
-(``slab_align``), so the max pools and upsamplings stay on each rank.
-Hyper and strided blocks are not sharded.
+before the block's remat, so that its recomputation runs no collective;
+``slab_block``), and the block convolves it without padding that dim on
+cuDNN and in a ``HyperConv``, or as a SAME convolution cut back to the slab
+(``drop_halo``) with the conv kernel and the lean-dw convolution, rounded
+as the JAX package rounds the whole volume's shape. The slabs end on
+multiples of the pool windows' product (``slab_align``), so the max pools
+and upsamplings stay on each rank. Strided blocks (which no model builds)
+are not sharded.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from ..parallel import mesh as mesh_lib
 from ..py.utils import default_unet_features
 
 __all__ = ["Unet", "ConvBlock", "HyperConv", "build_feature_lists", "he_normal_",
-           "lecun_normal_", "max_pool", "ACTIVATIONS"]
+           "lecun_normal_", "max_pool", "slab_block", "ACTIVATIONS"]
 
 # flax.linen's activations by name, as torch functions of channels-first
 # tensors (flax's defaults: gelu's tanh approximation, leaky_relu's slope
@@ -131,7 +132,9 @@ class HyperConv(nn.Module):
     ``truncated_normal`` times the he std, not rescaled to keep that std),
     the bias zero; their weights are N(0, 1e-3). Each sample is convolved
     with its own kernel as one grouped convolution (``groups=B``) in
-    ``dtype``, and the bias is added to the rounded output.
+    ``dtype``, and the bias is added to the rounded output. With ``slab``,
+    x is a slab widened by a plane of each neighbour's: its first spatial
+    dim is not padded.
     """
 
     def __init__(self, in_features: int, features: int, ndims: int, nb_hyp_units: int,
@@ -157,7 +160,7 @@ class HyperConv(nn.Module):
         return F.linear(hyp.to(self.dtype), layer.weight.to(self.dtype)) \
             + layer.bias.to(self.dtype)
 
-    def forward(self, x: torch.Tensor, hyp: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hyp: torch.Tensor, slab: bool = False) -> torch.Tensor:
         nd, ci, co = self.ndims, self.in_features, self.features
         batch, spatial = x.shape[0], x.shape[2:]
         kernels = self._dense(self.kernel_gen, hyp).view(batch, *(3,) * nd, ci, co)
@@ -165,8 +168,9 @@ class HyperConv(nn.Module):
         bias = self._dense(self.bias_gen, hyp)
         out = getattr(F, f"conv{nd}d")(
             x.to(self.dtype).reshape(1, batch * ci, *spatial),
-            kernels.reshape(batch * co, ci, *(3,) * nd), padding=1, groups=batch)
-        return out.view(batch, co, *spatial) + bias.view(batch, co, *[1] * nd)
+            kernels.reshape(batch * co, ci, *(3,) * nd),
+            padding=(0,) + (1,) * (nd - 1) if slab else 1, groups=batch)
+        return out.view(batch, co, *out.shape[2:]) + bias.view(batch, co, *[1] * nd)
 
 
 class ConvBlock(nn.Module):
@@ -250,13 +254,12 @@ class ConvBlock(nn.Module):
         widened by one plane of each neighbour's (``Unet`` under spatial
         sharding), and the output is the slab's."""
         x = x.to(self.dtype)
-        if depth is not None and (self.hyper or self.strides != 1):
-            raise NotImplementedError("spatial sharding of a hyper or strided conv block is "
-                                      "not ported")
+        if depth is not None and self.strides != 1:
+            raise NotImplementedError("spatial sharding of a strided conv block is not ported")
         fused = self.include_activation and not self.do_res
         slope = 0.2 if fused else None
         if self.hyper:
-            out = self.conv(x, hyp)
+            out = self.conv(x, hyp, slab=depth is not None)
             fused = False
         elif conv3.pallas_conv_enabled() and self.ndims == 3 and self.strides == 1 \
                 and x.dim() == 5:
@@ -279,12 +282,29 @@ class ConvBlock(nn.Module):
             if not hasattr(self, "resfix"):
                 out = out + _slab_of(x, depth)
             elif self.hyper:
-                out = out + self.resfix(x, hyp)
+                out = out + self.resfix(x, hyp, slab=depth is not None)
             else:
                 out = out + self._flax_conv(self.resfix, x, slab=depth is not None)
         if self.include_activation:
             out = leaky_relu(out, 0.2)
         return out
+
+
+def slab_block(block: nn.Module, x: torch.Tensor, hyp: Optional[torch.Tensor] = None,
+               remat: bool = False) -> torch.Tensor:
+    """The conv block ``block`` (a ``ConvBlock``) on ``x``, rematerialised in
+    the backward with ``remat`` while autograd records. Inside
+    ``parallel.mesh.slabs`` x is this rank's slab: it is widened by a plane
+    of each neighbour's first, outside the remat, and the block returns the
+    slab's output."""
+    depth = None
+    space = mesh_lib.current_space()
+    if space is not None:
+        depth = space.extent(x.shape[2])[0]
+        x = mesh_lib.halo_exchange(x, 1, 2, space)
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, hyp, depth, use_reentrant=False, preserve_rng_state=False)
+    return block(x, hyp, depth)
 
 
 def _slab_of(x: torch.Tensor, depth: Optional[int]) -> torch.Tensor:
@@ -458,19 +478,8 @@ class Unet(nn.Module):
         """The conv block ``name`` on ``x`` (and the embedding ``hyp`` of a
         hyper U-Net), rematerialised in the backward when ``remat`` and
         autograd records. Under spatial sharding the slab is widened by its
-        neighbours' planes first, outside the remat."""
-        block = getattr(self, name)
-        depth = None
-        space = mesh_lib.current_space()
-        if space is not None:
-            if self.hyper:
-                raise NotImplementedError("spatial sharding of a hyper U-Net is not ported")
-            depth = space.extent(x.shape[2])[0]
-            x = mesh_lib.halo_exchange(x, 1, 2, space)
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, hyp, depth, use_reentrant=False,
-                              preserve_rng_state=False)
-        return block(x, hyp, depth)
+        neighbours' planes first, outside the remat (``slab_block``)."""
+        return slab_block(getattr(self, name), x, hyp, self.remat)
 
     def forward(self, x: torch.Tensor, hyp: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.hyper and hyp is None:

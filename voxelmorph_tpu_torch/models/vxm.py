@@ -81,7 +81,14 @@ class VxmDense(nn.Module):
     ``fast_warp_halo`` by the 2^s-th root of pos_flow
     (``ops.warp.phase_warp_batched``), on either device; every field output
     is unchanged.
+
+    Over a mesh's 'space' axis (``parallel.mesh.spatial``) the source and
+    the target arrive as this rank's slabs (``slab_inputs``); the U-Net and
+    the flow heads run on them, and every parameter's gradient on a rank is
+    its slab's part (none is used whole: ``whole_parameters``).
     """
+
+    slab_inputs = (0, 1)
 
     def __init__(self, inshape: Sequence[int], nb_unet_features=None,
                  nb_unet_levels: Optional[int] = None, unet_feat_mult: int = 1,
@@ -153,6 +160,21 @@ class VxmDense(nn.Module):
         (the U-Net's ``slab_align``); ``shard_batch(spatial=True)`` takes it
         as ``align``."""
         return self.unet.slab_align
+
+    @property
+    def slab_depth(self) -> int:
+        """The first spatial dim of the volume the slabs cut."""
+        return self.inshape[0]
+
+    def whole_parameters(self):
+        """The parameters used whole on every rank of a row: none."""
+        return []
+
+    def slab(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slab of an input ``x`` ``(B, *inshape, C)`` computed
+        whole on every rank of the row (``parallel.mesh.slab_of``; x itself
+        outside ``spatial``)."""
+        return mesh_lib.slab_of(x, 1, self.slab_align)
 
     def _slabs_forward(self, source, target, hyp, outputs):
         """The U-Net and the flow heads: ``(flow, logsigma or None, source,
@@ -276,7 +298,28 @@ class VxmDense(nn.Module):
         return outputs
 
 
-class VxmDenseSemiSupervisedSeg(nn.Module):
+class VxmSlabs:
+    """The slab protocol (``parallel.mesh``) of a model built around a
+    VxmDense ``vxm``: the source and the target, its first two inputs,
+    arrive as slabs of ``vxm``'s volume, and no parameter is used whole on
+    every rank of a row (a class that uses some overrides
+    ``whole_parameters``)."""
+
+    slab_inputs = (0, 1)
+
+    @property
+    def slab_align(self) -> int:
+        return self.vxm.slab_align
+
+    @property
+    def slab_depth(self) -> int:
+        return self.vxm.slab_depth
+
+    def whole_parameters(self):
+        return []
+
+
+class VxmDenseSemiSupervisedSeg(VxmSlabs, nn.Module):
     """VxmDense plus the warp of downsampled one-hot segmentations.
 
     The network is a ``VxmDense`` held as ``self.vxm`` (the JAX module's
@@ -285,7 +328,9 @@ class VxmDenseSemiSupervisedSeg(nn.Module):
     trg_seg=None, generator=None)`` returns VxmDense's outputs plus
     'y_seg_source', ``src_seg`` ``(B, *S/seg_resolution, nb_labels)`` warped
     (linear) by pos_flow rescaled to the segmentation's resolution, and with
-    ``bidir_labels`` 'y_seg_target', ``trg_seg`` warped by neg_flow.
+    ``bidir_labels`` 'y_seg_target', ``trg_seg`` warped by neg_flow. Over a
+    mesh's 'space' axis the source and the target arrive as slabs, the
+    segmentations whole: their warps run on the whole field.
     """
 
     def __init__(self, inshape: Sequence[int], nb_labels: int, nb_unet_features=None,
@@ -325,7 +370,7 @@ class VxmDenseSemiSupervisedSeg(nn.Module):
         return out
 
 
-class VxmDenseSemiSupervisedPointCloud(nn.Module):
+class VxmDenseSemiSupervisedPointCloud(VxmSlabs, nn.Module):
     """Bidirectional VxmDense plus distances sampled at warped surface points.
 
     The network is a bidirectional ``VxmDense`` held as ``self.vxm`` (the
@@ -340,7 +385,9 @@ class VxmDenseSemiSupervisedPointCloud(nn.Module):
     'warped_subj_surface' and 'atl_dt_value', the subject's points by
     neg_flow on the atlas's SDTs. Without ``surf_bidir`` the generator gives
     four inputs, (source, target, subj_dt, atlas_surface), which the forward
-    takes in that order too.
+    takes in that order too. Over a mesh's 'space' axis the source and the
+    target arrive as slabs, the SDTs and the points whole: the sampling runs
+    on the whole field.
     """
 
     def __init__(self, inshape: Sequence[int], nb_surface_points: int, nb_labels_sample: int,
@@ -396,7 +443,21 @@ class InstanceDense(nn.Module):
     the JAX package, with ``int_steps=0`` nothing is rescaled: pos_flow stays
     on the flow's grid and y_source is sampled there (a grid of half the
     size with ``int_resolution=2``).
+
+    It has no network to shard: over a mesh's 'space' axis every rank of a
+    row computes the whole of it (the source arrives whole), and the flow's
+    gradient, whole on each, is averaged over 'space' (``whole_parameters``).
     """
+
+    slab_inputs = ()
+    slab_align = 1
+
+    @property
+    def slab_depth(self) -> int:
+        return self.inshape[0]
+
+    def whole_parameters(self):
+        return [self.flow]
 
     def __init__(self, inshape: Sequence[int], feats: int = 1, int_steps: int = 7,
                  int_resolution: int = 2, mult: float = 1000.0,

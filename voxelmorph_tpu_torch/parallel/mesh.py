@@ -22,16 +22,28 @@ package's GSPMD partitions it, with a layout of its own: each rank of a data
 row holds one slab (``slab_bounds``), whose ends fall on multiples of
 ``align``, the product of the U-Net's pool windows, so that no pool or
 upsampling straddles two ranks. ``shard_batch(spatial=True)`` cuts the
-slabs and ``gather_batch(spatial=True)`` puts them back. Inside ``spatial``
-(a train step of the ``Trainer``, or a serving call) a VxmDense forward
-runs its U-Net on the slab, each conv on the slab widened by one plane of
-each neighbour's (``halo_exchange``; zeros at the volume's faces), and
-gathers the flow field (``gather_space``): the integration, the warps and
-the losses then run on the whole field on every rank of the data row. Both
-collectives are differentiable and are built from ``all_reduce`` alone
-(each rank writes its planes into its place in a zeroed buffer, which is
-summed), the one collective that every backend takes on CUDA tensors; the
-space groups are one process group per data row (``space_group``).
+slabs and ``gather_batch(spatial=True)`` puts them back; ``shard_inputs``
+cuts a model's inputs as the model takes them (its ``slab_inputs``). Inside
+``spatial`` (a train step of the ``Trainer``, or a serving call) a model
+runs its convolutional network on the slab, each conv on the slab widened
+by one plane of each neighbour's (``halo_exchange``; zeros at the volume's
+faces), and gathers the flow field (``gather_space``): the integration, the
+warps and the losses then run on the whole field on every rank of the data
+row. A tensor computed whole on every rank enters a slab network through
+``slab_of``, the adjoint of ``gather_space``, so that every cotangent that
+reaches a gather is whole and alike on the ranks of a row. The collectives
+are differentiable and are built from ``all_reduce`` alone (each rank
+writes its planes into its place in a zeroed buffer, which is summed), the
+one collective that every backend takes on CUDA tensors; the space groups
+are one process group per data row (``space_group``).
+
+A model that takes a 'space' axis says how (the slab protocol, which the
+``Trainer`` reads): ``slab_inputs``, the positions of the inputs that arrive
+as slabs (volumes on its slab grid; every other input arrives whole);
+``slab_depth`` and ``slab_align``, the first spatial dim of the volume it
+cuts and the unit of its slabs; and ``whole_parameters()``, the parameters
+it uses whole on every rank of a row, whose gradients are averaged over
+'space' where every other parameter's, a slab's part, is summed.
 """
 
 from __future__ import annotations
@@ -258,6 +270,17 @@ def shard_batch(mesh: Mesh, tree, spatial: bool = False, device="cuda", align: i
     return _tree_map(put, tree)
 
 
+def shard_inputs(mesh: Mesh, model, inputs, device="cuda"):
+    """This rank's part of each of a model's ``inputs``: its rows, and on a
+    mesh whose 'space' axis is > 1 its slab of each input the model takes
+    as a slab (``model.slab_inputs``, in units of ``model.slab_align``);
+    every other input whole."""
+    slabbed = tuple(model.slab_inputs) if mesh.shape.get("space", 1) > 1 else ()
+    align = model.slab_align if slabbed else 1
+    return tuple(shard_batch(mesh, a, spatial=i in slabbed, device=device, align=align)
+                 for i, a in enumerate(inputs))
+
+
 def replicate(mesh: Mesh, tree, device="cuda"):
     """``tree`` as tensors on ``device`` (tensors stay where they are),
     every rank's made equal to rank 0's (a broadcast, in place)."""
@@ -414,8 +437,8 @@ class Space:
         """The first spatial dim's length and this slab's offset at a level
         of the U-Net where the slab has ``planes`` planes."""
         if self.depth is None:
-            raise ValueError("spatial sharding splits the volume of a VxmDense forward; "
-                             "this rank's slab is known only inside one")
+            raise ValueError("spatial sharding splits the volume of a model's forward; "
+                             "this rank's slab is known only inside one (slabs)")
         own = self.hi - self.lo
         return self.depth * planes // own, self.lo * planes // own
 
@@ -430,10 +453,10 @@ def current_space() -> Optional[Space]:
 
 @contextlib.contextmanager
 def spatial(mesh: Mesh):
-    """A forward over ``mesh``'s 'space' axis: inside, a VxmDense takes this
-    rank's slabs of its inputs (``shard_batch(spatial=True)``) and returns
-    outputs whole on every rank of its data row but ``unet_out``, a slab.
-    A no-op where the 'space' axis is 1."""
+    """A forward over ``mesh``'s 'space' axis: inside, a model takes this
+    rank's slabs of its ``slab_inputs`` (``shard_inputs``) and the rest
+    whole, and returns outputs whole on every rank of its data row but
+    ``unet_out``, a slab. A no-op where the 'space' axis is 1."""
     if mesh.shape.get("space", 1) == 1:
         yield
         return
@@ -575,9 +598,8 @@ class _GatherSpace(torch.autograd.Function):
     each."""
 
     @staticmethod
-    def forward(ctx, x, dim, space):
+    def forward(ctx, x, dim, space, total, start):
         n = x.shape[dim]
-        total, start = space.extent(n)
         ctx.dim, ctx.start, ctx.n = dim, start, n
         shape = list(x.shape)
         shape[dim] = total
@@ -589,11 +611,53 @@ class _GatherSpace(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None, None
 
 
-def gather_space(x: torch.Tensor, dim: int, space: Optional[Space] = None) -> torch.Tensor:
+def gather_space(x: torch.Tensor, dim: int, space: Optional[Space] = None,
+                 extent: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The whole volume, on every rank of the data row, from each rank's
     slab ``x`` along ``dim`` (inside ``slabs``); differentiable under the
-    rule that what follows is computed alike on every rank of the row."""
-    return _GatherSpace.apply(x, dim, space or current_space())
+    rule that what follows is computed alike on every rank of the row.
+    ``extent``, ``(total, start)``: the whole dim's length and this slab's
+    offset, for parts that are not the ``slab_bounds`` of a level (a VALID
+    convolution's output); by default ``space.extent``."""
+    space = space or current_space()
+    total, start = extent or space.extent(x.shape[dim])
+    return _GatherSpace.apply(x, dim, space, total, start)
+
+
+class _SlabOf(torch.autograd.Function):
+    """This rank's planes ``lo:hi`` of a tensor whole and alike on every
+    rank of the data row; the backward puts the ranks' slabs of the
+    cotangent together, so that every rank gets the whole of it (the
+    adjoint of ``_GatherSpace``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, lo, hi, space):
+        ctx.dim, ctx.lo, ctx.shape, ctx.space = dim, lo, x.shape, space
+        return x.narrow(dim, lo, hi - lo)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        buf = g.new_zeros(ctx.shape)
+        buf.narrow(ctx.dim, ctx.lo, g.shape[ctx.dim]).copy_(g)
+        ctx.space.all_reduce(buf)
+        return buf, None, None, None, None
+
+
+def slab_of(x: torch.Tensor, dim: int, align: int = 1,
+            space: Optional[Space] = None) -> torch.Tensor:
+    """This rank's slab along ``dim`` (``slab_bounds`` in units of
+    ``align``) of ``x``, a tensor whole and alike on every rank of the data
+    row (of ``space``, by default the enclosing ``spatial``'s; x itself
+    outside one). Differentiable: every rank's input gets the whole
+    cotangent, the sum of the ranks' slabs of it, so that what feeds x
+    (parameters used whole on every rank) sees the gradient of one
+    process."""
+    space = space or current_space()
+    if space is None:
+        return x
+    lo, hi = slab_bounds(x.shape[dim], space.size, align)[space.index]
+    return _SlabOf.apply(x, dim, lo, hi, space)

@@ -19,10 +19,12 @@ Over a process group of several ranks (``parallel.mesh``) the ``Trainer``
 is data-parallel, as the JAX Trainer is over its device mesh: each step
 takes the global batch, each rank computes on its rows, the model is
 wrapped in ``DistributedDataParallel`` and a step computes the update of the
-global batch. On a mesh whose 'space' axis is > 1 a ``VxmDense`` is also
-spatially sharded, as the JAX Trainer's GSPMD step is: each rank runs the
-U-Net on its slab of the first spatial dim, and the gradient is summed over
-the 'space' axis and averaged over 'data'. Rank 0 alone writes checkpoints.
+global batch. On a mesh whose 'space' axis is > 1 every model class of the
+package is also spatially sharded, as the JAX Trainer's GSPMD step is: each
+rank runs the model's network on its slab of the first spatial dim, and
+the gradient is summed over the 'space' axis (averaged, for the parameters
+a model uses whole on every rank) and averaged over 'data'. Rank 0 alone
+writes checkpoints.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ import torch.distributed as dist
 from . import resolve_device
 from .models import modelio
 from .models.atlas import stream_step
-from .models.vxm import VxmDense
 from .parallel import mesh as mesh_lib
 from .py.utils import load_volfile
 
@@ -110,12 +111,26 @@ def resolve_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def _sum_space_mean_data(data: int, bucket):
+_SLAB_PROTOCOL = ("slab_inputs", "slab_depth", "slab_align", "whole_parameters")
+
+
+def _sum_space_mean_data(state, bucket):
     """DDP's reduction of a gradient bucket over a mesh with a 'space' axis:
     divided by the 'data' axis's length (not the world's, as DDP's own),
     then summed over the ranks. A space rank's gradient is its slab's part
-    of its data row's, so the sum over a row is the row's gradient."""
+    of its data row's, so the sum over a row is the row's gradient; a
+    parameter the model uses whole on every rank (``state``: the 'data' and
+    'space' lengths and those parameters' storage addresses) has the row's
+    whole gradient on each of its ranks, so its part of the bucket is also
+    divided by the 'space' axis's length: its sum is their mean."""
+    data, space, whole = state
     grads = bucket.buffer()
+    if whole:
+        offset = 0
+        for p in bucket.parameters():
+            if p.data_ptr() in whole:
+                grads[offset:offset + p.numel()].div_(space)
+            offset += p.numel()
     if data > 1:
         grads.div_(data)
     return dist.all_reduce(grads, async_op=True).get_future().then(
@@ -292,14 +307,18 @@ class Trainer:
     metrics are averaged over the ranks on the device. ``spatial_shard``
     gives the ranks that the batch leaves over to the mesh's 'space' axis
     where they divide the first spatial dim, as in JAX. On a mesh whose
-    'space' axis is > 1 each rank of a data row takes its slab of the
-    inputs' first spatial dim (``shard_batch(spatial=True)`` in the model's
-    ``slab_align``) and the targets whole, and the step runs inside
-    ``parallel.mesh.spatial``: the model's outputs, and so the losses, are
-    whole on every rank of the row. Each rank's gradient is then its slab's
-    part of the row's, so DDP's reduction sums over the ranks and divides by
-    the 'data' axis alone. Only a ``VxmDense`` (not a hyper one) is sharded
-    so; any other model raises NotImplementedError.
+    'space' axis is > 1 each rank of a data row takes its slab of the first
+    spatial dim of the inputs the model takes as slabs (``shard_inputs``:
+    its ``slab_inputs``, in its ``slab_align``), the other inputs and the
+    targets whole, and the step runs inside ``parallel.mesh.spatial``: the
+    model's outputs, and so the losses, are whole on every rank of the row.
+    Each rank's gradient is then its slab's part of the row's, so DDP's
+    reduction sums over the ranks and divides by the 'data' axis alone,
+    and also by the 'space' axis for the parameters the model uses whole on
+    every rank (its ``whole_parameters()``). Every model class of the
+    package has that slab protocol (``parallel.mesh``); a model without it
+    raises NotImplementedError, and a volume too thin for the slabs
+    ValueError.
     """
 
     def __init__(self, model, loss_terms: Sequence[LossTerm], lr: float = 1e-4,
@@ -330,13 +349,13 @@ class Trainer:
     def _set_mesh(self, mesh):
         space = mesh.shape.get("space", 1)
         if space > 1:
-            if type(self.model) is not VxmDense or self.model.hyper:
-                name = ("a hyper " if type(self.model) is VxmDense else "") + type(
-                    self.model).__name__
+            missing = [k for k in _SLAB_PROTOCOL if not hasattr(self.model, k)]
+            if missing:
                 raise NotImplementedError(
                     f"spatial sharding (a 'space' mesh axis > 1, --spatial-shard) of "
-                    f"{name} is not ported; of the models, VxmDense alone is sharded so")
-            mesh_lib.slab_bounds(self.model.inshape[0], space, self.model.slab_align)
+                    f"{type(self.model).__name__} is not ported: the model has no slab "
+                    f"protocol ({', '.join(missing)}; parallel.mesh)")
+            mesh_lib.slab_bounds(self.model.slab_depth, space, self.model.slab_align)
             mesh_lib.space_group(mesh)
         self.mesh = mesh
         if self.world_size > 1 and self.ddp is None:
@@ -349,7 +368,9 @@ class Trainer:
                 [torch.cuda.current_device() if self.device.index is None else self.device.index]
                 if self.device.type == "cuda" else None), **{no_sync: False})
             if space > 1:
-                self.ddp.register_comm_hook(mesh.shape["data"], _sum_space_mean_data)
+                whole = {p.data_ptr() for p in self.model.whole_parameters()}
+                self.ddp.register_comm_hook((mesh.shape["data"], space, whole),
+                                            _sum_space_mean_data)
             self.loss_fn = make_loss_fn(self.ddp, self.loss_terms)
 
     def _ensure_mesh(self, arrays):
@@ -369,12 +390,9 @@ class Trainer:
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
 
-    def _put(self, arrays, spatial: bool = False):
-        """This rank's part of a batch: its rows, and with ``spatial`` its
-        slabs on a mesh whose 'space' axis is > 1."""
-        align = self.model.slab_align if spatial and self.mesh.shape["space"] > 1 else 1
-        return mesh_lib.shard_batch(self.mesh, tuple(arrays), spatial=spatial,
-                                    device=self.device, align=align)
+    def _put(self, arrays):
+        """This rank's rows of each array of a batch, whole."""
+        return mesh_lib.shard_batch(self.mesh, tuple(arrays), device=self.device)
 
     def train_step(self, inputs, targets) -> Dict[str, torch.Tensor]:
         """One Adam step on a (global) batch; returns the step's metrics
@@ -385,7 +403,8 @@ class Trainer:
             self.init()
         (self.model if self.ddp is None else self.ddp).train()
         batch = int(np.shape(inputs[0])[0])
-        inputs, targets = self._put(inputs, spatial=True), self._put(targets)
+        inputs = mesh_lib.shard_inputs(self.mesh, self.model, inputs, self.device)
+        targets = self._put(targets)
         self.optimizer.zero_grad(set_to_none=True)
         # the model's mutable state (MeanStream) updates once, as the step ends
         with stream_step(self.model), mesh_lib.sharded_step(self.mesh, batch), \
