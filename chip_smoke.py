@@ -19,8 +19,9 @@ Run from the root of the repository:
 Phases:
   1. device and build: the card's name and power limit (nvidia-smi), then
      every CUDA kernel of the port built with nvcc from csrc/, all at once,
-     and the conv kernel's tensor-core instructions (HMMA) counted in its
-     machine code (cuobjdump), which must not be none;
+     and the conv kernel's wgmma instructions (HGMMA) counted in its
+     machine code (cuobjdump), which must not be none, beside its mma.sync
+     ones (HMMA), which must be none;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it and at stress shapes, with times
      beside the bound (and bound_share, the bound over the time), the plain
@@ -37,7 +38,12 @@ Phases:
      11 conv shapes, bfloat16 and float32, forward (both rounding orders)
      and the input-gradient orientation, on channels-last inputs as the
      U-Net feeds them, bit-equal across two launches, with times beside the
-     bound, the plain version and cuDNN's conv3d on the same inputs;
+     bound (bound_share), the plain version and cuDNN's conv3d on the same
+     inputs (vs_library, the kernel's time over cuDNN's) and the route each
+     takes (the input by TMA, the producer's cp.async or its element
+     copies, the weights resident or streamed, tiles of one warpgroup or
+     both, as the wrapper plans them); phase 12b does the same at
+     SynthMorph's 10 conv shapes, read off its model;
   2e. the tiered warp's predicated kernels at each tier of {1, 2} at the
      squaring shape, 1 to 4 channels: every branch launched with the
      device's tier word into its own NaN-filled buffer (the gather's dvol,
@@ -450,7 +456,6 @@ UNET_CONVS = [(160, 192, 224, 2, 16), (80, 96, 112, 16, 32), (40, 48, 56, 32, 32
               (40, 48, 56, 64, 32), (80, 96, 112, 64, 32), (160, 192, 224, 48, 32),
               (160, 192, 224, 32, 16), (160, 192, 224, 16, 16)]
 
-
 # conv launches of a train step in conv-kernel mode: the U-Net's 11 forward
 # convs, their recomputation in the backward (the per-block remat), and the
 # input gradients of all but the first
@@ -543,13 +548,14 @@ def no_warp_launches(counts):
     return not any(v for k, v in counts.items() if k not in ("conv", "layout_copies"))
 
 
-def tensor_core_instructions(name):
-    """The number of tensor-core (HMMA) instructions in the machine code of
-    the kernel library ``name``, from cuobjdump next to nvcc."""
+def tensor_core_instructions(name, opcode="HGMMA"):
+    """The number of tensor-core instructions ``opcode`` (HGMMA: wgmma;
+    HMMA: mma.sync) in the machine code of the kernel library ``name``, from
+    cuobjdump next to nvcc."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def phase(name):
@@ -1193,6 +1199,24 @@ def conv_bound(ci, co, vox, dtype, f32_rate=F32_CONV_FLOPS_PER_S):
         t_bytes, t_ops
 
 
+def conv_route(x, c_out, orientation):
+    """The conv kernel's route for one conv of input ``x`` (B, ci, D, H, W):
+    the float32 forward on the CUDA cores, else the tensor-core plan the
+    wrapper makes for x: the staging of the input (``conv3.staging``: TMA,
+    the producer's cp.async or element copies), its weights (resident or
+    streamed) and its team (one warpgroup or both on a tile)."""
+    if x.dtype == torch.float32 and orientation != "dx":
+        return dict(route="cuda_cores")
+    B, c_in, D, H, W = x.shape
+    staging = conv3.staging(c_in, x.dtype, x.data_ptr())
+    mf, n, tz, ty, txf, hstages, wstages, team_warps, blocks = conv3.tile_plan(
+        B, c_in, c_out, D, H, W, x.dtype,
+        torch.cuda.get_device_properties(x.device).multi_processor_count, staging)
+    return dict(route="wgmma", staging=staging,
+                weights="streamed" if wstages else "resident", team_warps=team_warps,
+                plan=[mf, n, tz, ty, txf, hstages, wstages, team_warps, blocks])
+
+
 def check_conv3(seed, convs=UNET_CONVS, orientations=("fwd", "fwd_act_off", "dx"),
                 label="conv3", dtypes=(torch.bfloat16, torch.float32)):
     """The conv kernel against its plain version at a U-Net's (D, H, W, ci,
@@ -1203,9 +1227,10 @@ def check_conv3(seed, convs=UNET_CONVS, orientations=("fwd", "fwd_act_off", "dx"
     those of ``orientations``, in ``dtypes``, within conv3.kernel_tolerance
     and bit-equal across two launches; times of the rounding order the main
     path uses beside the bound and cuDNN's, cuDNN's float32 in full
-    float32, as the kernel computes. Returns the rows and the totals by
-    (dtype, orientation) over the convs a register call (forward) and a
-    train step (input gradient: all but the first) run."""
+    float32, as the kernel computes, with the route each takes
+    (``conv_route``). Returns the rows and the totals by (dtype,
+    orientation) over the convs a register call (forward) and a train step
+    (input gradient: all but the first) run."""
     with full_float32():
         return _check_conv3(seed, convs, orientations, label, dtypes)
 
@@ -1276,7 +1301,10 @@ def _check_conv3(seed, convs, orientations, label, dtypes):
                     plain_ms=time_cuda_ms(lambda: conv3.conv3_same_cf_plain(
                         inp, k, b, slope, None, order), reps=3, warmup=1),
                     library_ms=time_cuda_ms(lambda: F.conv3d(inp, w_lib, b_lib, padding=1)),
-                    bound_ms=bound_ms, bound_by=bound_by)
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    **conv_route(inp, c_out, orientation))
+                row["bound_share"] = bound_ms / row["ms"]
+                row["vs_library"] = row["ms"] / row["library_ms"]
                 log(json.dumps(row))
                 if not ratio <= 1.0:
                     raise AssertionError(f"conv3 kernel differs from its plain version by "
@@ -1302,12 +1330,15 @@ def _check_conv3(seed, convs, orientations, label, dtypes):
             del x, g, kernel, flipped
     for (dtype, orientation), t in totals.items():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["vs_library"] = t["ms"] / t["library_ms"]
         f32_note = (f"; at the float32 CUDA-core rate the bound was "
                     f"{t['cuda_core_bound_ms']:.4f} ms" if dtype == "float32" else "")
         t.pop("cuda_core_bound_ms")
         log(f"{label} {dtype} {orientation}, {t['convs']} convs: kernel {t['ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}{f32_note}), plain {t['plain_ms']:.4f} "
-            f"ms, cuDNN {t['library_ms']:.4f} ms")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}{f32_note}; bound_share "
+            f"{t['bound_share']:.3f}), plain {t['plain_ms']:.4f} ms, cuDNN {t['library_ms']:.4f} "
+            f"ms (vs_library {t['vs_library']:.3f})")
     return rows, totals
 
 
@@ -5611,10 +5642,10 @@ def main(argv=None) -> int:
     # the package's kernels built to count the backward's atomic adds and
     # merged terms (phase 2e's logs; not timed)
     counting = gather_builds.pop("counting")
-    hmma = tensor_core_instructions("conv3")
-    log(f"conv3: {hmma} tensor-core instructions (HMMA) in libconv3.so")
-    if hmma == 0:
-        raise AssertionError("the conv kernel has no tensor-core instructions")
+    hgmma, hmma = tensor_core_instructions("conv3"), tensor_core_instructions("conv3", "HMMA")
+    log(f"conv3: {hgmma} wgmma instructions (HGMMA), {hmma} mma.sync (HMMA) in libconv3.so")
+    if hgmma == 0 or hmma != 0:
+        raise AssertionError("the conv kernel's products are not all wgmma")
     log(f"phase 1: {time.perf_counter() - t:.2f} s")
 
     t = phase("2. warp_bounded kernel vs plain version")
@@ -5893,14 +5924,16 @@ def main(argv=None) -> int:
         replaces="voxelmorph_tpu/ops/pallas_conv.py:124",
         launches=point_conv_launches["conv"],
         launches_by_path={path: n["conv"] for path, n in paths.items()},
-        max_abs_err=max(r["max_abs_err"] for r in conv_rows),
-        max_err_over_tol=max(r["max_err_over_tol"] for r in conv_rows),
+        max_abs_err=max(r["max_abs_err"] for r in conv_rows + synth_serve["conv_rows"]),
+        max_err_over_tol=max(r["max_err_over_tol"]
+                             for r in conv_rows + synth_serve["conv_rows"]),
         ms=conv_serving["ms"], plain_ms=conv_serving["plain_ms"],
         bound_ms=conv_serving["bound_ms"], bound_by=conv_serving["bound_by"],
+        bound_share=conv_serving["bound_share"], vs_library=conv_serving["vs_library"],
         library_ms=conv_serving["library_ms"], register_conv_ms_per_pair=conv_ms,
-        train_step_conv=conv_train, tensor_core_instructions=hmma,
-        # the same sums at SynthMorph's 64-wide U-Net (phase 12b): 10
-        # forward convs, 9 input gradients
+        train_step_conv=conv_train, wgmma_instructions=hgmma,
+        # the same sums at SynthMorph's 64-wide U-Net (phase 12b, at the
+        # shapes read off its model): 10 forward convs, 9 input gradients
         synthmorph=synth_serve["conv_totals"])]
     log("summary: " + json.dumps(dict(
         template={("conv_kernel" if k is True else "cudnn" if k is False else k): {

@@ -6,8 +6,9 @@
 // are rewritten by the test (tests/test_torch_kernel_emulation.py) into
 // emu_launch(...) and a pointer to emu_shared_memory.
 // <cuda_pipeline_primitives.h> beside it stands in for the asynchronous
-// copies, and tensor_core.cuh for csrc/tensor_core.cuh. A warp's shuffles
-// and reductions meet at a barrier of the warp's 32 threads.
+// copies, tensor_core.cuh and hopper.cuh for csrc/'s headers of the same
+// names, and cuda.h for the driver API's TMA descriptor. A warp's shuffles,
+// reductions and __syncwarp() meet at a barrier of the warp's 32 threads.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -17,6 +18,8 @@
 #include <memory>
 #include <thread>
 #include <vector>
+
+#include "cuda.h"
 
 struct float2 {
   float x, y;
@@ -37,12 +40,32 @@ thread_local unsigned emu_thread;  // the thread's index in its block
 static std::barrier<>* emu_barrier = nullptr;
 static std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;  // one per warp
 static long long emu_warp_values[1024];
-alignas(128) static float emu_shared_memory[232448 / sizeof(float)];
+// 1024-byte aligned, as a kernel aligns its buffers: the 32-byte swizzle
+// of TMA and wgmma is read off the shared-memory address
+alignas(1024) static float emu_shared_memory[232448 / sizeof(float)];
+// a pointer's address in the shared-memory window: its offset in the buffer
+static size_t __cvta_generic_to_shared(const void* p) {
+  return static_cast<size_t>(static_cast<const char*>(p) -
+                             reinterpret_cast<const char*>(emu_shared_memory));
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaEnableDefault = 0 };
+typedef enum {
+  cudaDriverEntryPointSuccess = 0,
+  cudaDriverEntryPointSymbolNotFound = 1
+} cudaDriverEntryPointQueryResult;
+// the driver's functions by name: cuTensorMapEncodeTiled's stand-in
+static cudaError_t cudaGetDriverEntryPoint(const char* symbol, void** fn, unsigned long long,
+                                           cudaDriverEntryPointQueryResult* status = nullptr) {
+  const bool found = std::strcmp(symbol, "cuTensorMapEncodeTiled") == 0;
+  *fn = found ? reinterpret_cast<void*>(&emu_encode_tiled) : nullptr;
+  if (status) *status = found ? cudaDriverEntryPointSuccess : cudaDriverEntryPointSymbolNotFound;
+  return cudaSuccess;
+}
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 // one device of 132 SMs that holds one block of any kernel on each
 static cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
@@ -60,6 +83,7 @@ static cudaError_t cudaGetLastError() { return cudaSuccess; }
 #define __align__(n) alignas(n)
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __syncthreads() emu_barrier->arrive_and_wait()
 // rounded apart: no fused multiply-add, as the intrinsics promise
 static float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -92,6 +116,9 @@ T emu_warp_exchange(T v, F read) {
   const T r = read(emu_thread % 32, lane_value);
   emu_warp_barriers[warp]->arrive_and_wait();
   return r;
+}
+static void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp_barriers[emu_thread / 32]->arrive_and_wait();
 }
 template <class T>
 T __shfl_up_sync(unsigned, T v, unsigned delta) {

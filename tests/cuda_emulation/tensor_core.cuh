@@ -4,17 +4,11 @@
 // against the stand-ins of this directory.
 //
 // Each CUDA thread (std::thread) is one lane of its warp and holds what its
-// part of the product needs: the accumulator follows the documented lane
-// layout of mma.m16n8 (PTX ISA, "Matrix Fragments for mma.m16n8k16"), lane
-// 4 g + t holding rows g and g + 8 and columns 2t, 2t + 1 of each n8 tile,
-// so that elementwise work on Acc::c and store_acc touch each output in
-// exactly one lane, as on the card. A lane's FragA holds the A rows and its
-// FragB the B columns of its outputs (on the card the lanes exchange them
-// inside the mma). The products are exact in f32 (bfloat16 and TF32
-// operands) and are added in k order with f32 rounding to nearest; the
-// tensor cores may round their sums otherwise, which the tests' tolerance
-// covers. to_tf32 rounds to nearest, ties away from zero, as
-// cvt.rna.tf32.f32 does.
+// part of a product needs: a lane's FragA holds the two A rows of its
+// outputs, g and g + 8 for lane 4 g + t (on the card the lanes exchange the
+// rows inside the tensor cores; hopper.cuh's wgmma stand-in gives each lane
+// its outputs in the accumulator layout of mma.m16n8). to_tf32 rounds to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 does.
 #pragma once
 #include <cstdint>
 #include <cstring>
@@ -27,18 +21,8 @@ namespace vxm {
 struct FragA {
   float a[2][16];  // rows g and g + 8, k
 };
-struct FragB {
-  float b[4][16];  // columns 2t, 2t + 1, 8 + 2t, 9 + 2t, k
-};
-struct Acc {
-  float c[8];
-};
 
 inline int swz_half(int row, int half) { return half ^ ((row >> 2) & 1); }
-
-inline void zero(Acc& a) {
-  for (int e = 0; e < 8; ++e) a.c[e] = 0.f;
-}
 
 inline int lane() {
   return (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
@@ -61,25 +45,6 @@ inline void load_a(FragA& f, const T* base, int row) {
     for (int k = 0; k < 32 / (int)sizeof(T); ++k) f.a[r][k] = element(base, row + g + 8 * r, k);
 }
 
-template <typename T>
-inline void load_b(FragB& f, const T* base, int row) {
-  const int t = lane() % 4;
-  const int cols[4] = {2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t};
-  for (int c = 0; c < 4; ++c)
-    for (int k = 0; k < 32 / (int)sizeof(T); ++k) f.b[c][k] = element(base, row + cols[c], k);
-}
-
-template <typename T>
-inline void mma(Acc& d, const FragA& a, const FragB& b) {
-  for (int e = 0; e < 8; ++e) {
-    const int r = (e / 2) % 2;            // row g or g + 8
-    const int c = e % 2 + 2 * (e / 4);    // column 2t, 2t + 1, 8 + 2t, 9 + 2t
-    float s = d.c[e];
-    for (int k = 0; k < 32 / (int)sizeof(T); ++k) s += a.a[r][k] * b.b[c][k];
-    d.c[e] = s;
-  }
-}
-
 inline float to_tf32(float v) {
   uint32_t u;
   std::memcpy(&u, &v, sizeof u);
@@ -100,15 +65,6 @@ inline void split_tf32(F& big, F& small) {
     b[e] = to_tf32(v);
     s[e] = to_tf32(v - b[e]);
   }
-}
-
-inline void store_acc(float* tile, int ld, const Acc& a) {
-  const int g = lane() / 4, t = lane() % 4;
-  for (int n = 0; n < 2; ++n)
-    for (int h = 0; h < 2; ++h) {
-      tile[(g + 8 * h) * ld + 8 * n + 2 * t] = a.c[4 * n + 2 * h];
-      tile[(g + 8 * h) * ld + 8 * n + 2 * t + 1] = a.c[4 * n + 2 * h + 1];
-    }
 }
 
 }  // namespace vxm

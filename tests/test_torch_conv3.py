@@ -139,17 +139,35 @@ def test_lean_dw_matches_jax(shape, nd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_tile_plan_fills_the_card_at_full_width(dtype):
     """Every conv of the full-width U-Net, forward and input gradient, gets
-    a tile of whole warps that fits in shared memory and launches at least
-    one block per SM of an H100 (132)."""
+    a persistent plan whose tile is its team's rows of 16 voxels (the rows
+    a warp owns at that width, or 1), whose shared memory fits an H100, and
+    whose grid gives each of the 132 SMs a block with a tile: at every conv
+    from 40x48x56 up, and at 20x24x28 where the weights stay resident (a
+    tile of one warpgroup's 4 rows). Where they stream at 20x24x28 (float32),
+    each SM gets at most one tile, both warpgroups on its 8 rows (120
+    tiles): two teams there would each stream the weights for a tile of
+    their own, which made the conv slower on an H100. 10x12x14 has 120 rows
+    of 16 voxels, fewer than the SMs, and gets the smallest tiles, one
+    warpgroup's 4 rows."""
     for D, H, W, ci, co in FULL_WIDTH:
-        for c_out in (co, ci):
-            mf, nf, nwarps, tz, ty, txf = conv3.tile_plan(1, D, H, W, c_out, dtype)
-            assert tz * ty * txf == nwarps * mf and 1 <= nwarps <= 8 and 1 <= nf <= 3
-            assert mf in (1, conv3._MF_BIG[dtype])
-            blocks = -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * -(-c_out // (16 * nf))
-            assert blocks >= 132, (D, H, W, ci, co, c_out)
+        for c_in, c_out in ((ci, co), (co, ci)):
+            mf, n, tz, ty, txf, hs, ws, team_warps, blocks = conv3.tile_plan(
+                1, c_in, c_out, D, H, W, dtype)
+            assert n == conv3.block_width(c_out) and mf in (conv3.rows_per_warp(dtype, n), 1)
+            assert team_warps in (4, 8) and tz * ty * txf == team_warps * mf
+            assert ws != 1 and (ws == 0 or team_warps == 8 or mf == 1)
+            tiles = -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * -(-c_out // n)
+            assert blocks == min(tiles, 132)
+            if D * H * W >= 40 * 48 * 56 or (D * H * W >= 20 * 24 * 28 and ws == 0):
+                assert tiles >= 132, (D, H, W, c_in, c_out)
+            elif D * H * W >= 20 * 24 * 28:
+                assert (mf, team_warps, tiles) == (1, 8, 120), (D, H, W, c_in, c_out)
+            else:
+                assert (mf, team_warps) == (1, 4), (D, H, W, c_in, c_out)
             halo = (tz + 2) * (ty + 2) * (16 * txf + 2)
-            assert conv3._STAGES[dtype] * conv3._stage_bytes(halo, nf, dtype) <= 232448
+            nchunks = -(-c_in // conv3._KC[dtype])
+            assert conv3.smem_bytes(halo, n, nchunks, hs, ws, dtype, -(-c_out // n),
+                                    8 // team_warps) <= 232448
 
 
 def _shifted_dw_db_channels_first(x, gf):

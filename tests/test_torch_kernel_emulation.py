@@ -1,19 +1,24 @@
 """The port's CUDA kernels run on the CPU, against their plain versions.
 
 ``csrc/warp_bounded.cu`` and ``csrc/conv3.cu`` are compiled with the host's
-C++ compiler against stand-ins for ``<cuda_runtime.h>``, ``<cuda_bf16.h>``,
-``<cuda_pipeline_primitives.h>`` and the tensor-core helpers of
-``csrc/tensor_core.cuh`` (``tests/cuda_emulation/``) that run each block's
-threads as ``std::thread``s with a barrier for ``__syncthreads()``, give each
-thread its lane's part of a tensor-core product, and make ``cp.async`` a
-plain copy. The kernels then run through
+C++ compiler against stand-ins for ``<cuda_runtime.h>``, ``<cuda.h>``,
+``<cuda_bf16.h>``, ``<cuda_pipeline_primitives.h>`` and the helpers of
+``csrc/tensor_core.cuh`` and ``csrc/hopper.cuh`` (``tests/cuda_emulation/``)
+that run each block's threads as ``std::thread``s with a barrier for
+``__syncthreads()``, give each thread its lane's part of a tensor-core
+product (wgmma, its B read through the descriptor and the 32-byte
+swizzle), make mbarriers blocking objects, a TMA load an immediate copy of
+its box (zeros outside the tensor) and ``cp.async`` a plain copy. The
+kernels then run through
 their C entry points on CPU tensors, at shapes that leave ragged edge tiles
 in every direction. The bounded-warp forward and backward must equal
 ``windowed_transform`` and ``warp_bounded_bwd_plain`` bit for bit: they add
 the same terms in the same order with the same roundings. The conv kernel
 sums its products in another order than the plain version's matrix product
 (and in float32 splits them into TF32 parts), so it is held within
-``conv3.kernel_tolerance``, at several of its tiles. This checks the
+``conv3.kernel_tolerance``, at several of its plans: both staging routes
+of the input (TMA and the producer's own copies), resident and streamed
+weights, block widths up to 128 and blocks that walk several tiles. This checks the
 kernels' indexing and arithmetic where there is no GPU; the GPU build and
 launch are checked by ``chip_smoke.py``.
 """
@@ -87,7 +92,7 @@ def kernels(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def conv_kernel(tmp_path_factory):
-    lib = _compile(tmp_path_factory, "conv3", ["smem", "fsmem"], 2)
+    lib = _compile(tmp_path_factory, "conv3", ["smem_raw", "fsmem"], 2)
     fn = lib.vxm_conv3_fwd
     fn.argtypes = conv3._ARGTYPES
     fn.restype = ctypes.c_int
@@ -171,43 +176,63 @@ def test_kernels_take_tensors_at_any_float_offset(kernels, nch, halo):
 
 
 # (batch, ci, co, D, H, W, layout, tile, fma_tile): ragged tiles along x, y
-# and z, ci and co not multiples of the staged chunk (16 bf16, 8 f32) or of
-# an N fragment (16), the first conv's two input channels (element-wise
-# staging), co of one to four N fragments (64: two groups of two),
-# channels-last inputs and NCDHW ones (one layout copy). tile, the
-# tensor-core tile: "auto" is tile_plan's choice; ("big", nwarps, tz, ty)
-# the large warp tiles (4 rows a warp in bfloat16, 2 in float32, txf what
-# remains); ("small", nwarps, tz, ty, txf) one row a warp. fma_tile, the
-# float32 forward's CUDA-core tile (tz, ty), None for fma_tile_plan's. The
-# first three cases keep the ids they had before the layout and tile
-# columns existed.
-CONV_CASES = [pytest.param(*case, id="-".join(map(str, case[:6])) + (
-    "" if i < 3 else f"-{case[6]}")) for i, case in enumerate([
-        (1, 10, 20, 5, 9, 33, "cl", "auto", None),
-        (2, 3, 4, 6, 10, 35, "ncdhw", "auto", None),
-        (1, 16, 10, 7, 9, 34, "cl", "auto", (1, 2)),
-        (1, 2, 16, 5, 7, 37, "cl", ("big", 4, 2, 2), (2, 2)),
-        (1, 24, 40, 3, 5, 40, "ncdhw", ("big", 8, 2, 4), (2, 4)),
-        (2, 32, 17, 4, 3, 18, "cl", ("small", 4, 1, 2, 2), (1, 1)),
-        (1, 48, 64, 3, 4, 16, "cl", ("big", 4, 2, 2), (2, 8)),
-        (1, 12, 20, 9, 17, 40, "cl", "auto", (4, 8)),
-        # SynthMorph's 64-wide U-Net, with the tiles tile_plan and
-        # fma_tile_plan give its full-width shapes: the decoder's skip
-        # concat (ci 128) and the first block (ci 2)
-        (1, 128, 64, 5, 6, 9, "cl", ("big", 8, 4, 4), (4, 8)),
-        (1, 2, 64, 6, 5, 11, "cl", ("big", 8, 2, 4), (4, 8))])]
+# and z; ci and co not multiples of the staged chunk (16 bf16, 8 f32) or of
+# a block width; input channel rows that are whole 16-byte vectors (TMA)
+# and ones that are not (the producer's copies: ci 2, 3, 10, and 10 or 12
+# as the input gradient's); block widths 16, 32, 48 (32 + 16), 64, and 128
+# (the input gradient of 128 -> 64); channels-last inputs and NCDHW ones
+# (one layout copy). tile, the tensor-core plan: "auto" is tile_plan's for
+# an H100's 132 SMs, which at these small volumes takes 1 row a warp; a
+# dict overrides it: "sms" the SMs the plan is made for (a few: the rows a
+# warp owns at full width), "team" the warps of a team (4 or 8), "shape"
+# (tz, ty) of the tile (txf what the rows leave), "weights" "resident" or
+# "streamed" (the most stages that fit), "blocks" the persistent grid
+# (fewer blocks than tiles: a block walks several). fma_tile, the float32
+# forward's CUDA-core tile (tz, ty), None for fma_tile_plan's.
+CONV_CASES = [pytest.param(*case, id="-".join(map(str, case[:7]))) for case in [
+    (1, 10, 20, 5, 9, 33, "cl", "auto", None),
+    (2, 3, 4, 6, 10, 35, "ncdhw", "auto", None),
+    (1, 16, 10, 7, 9, 34, "cl", {"sms": 4, "blocks": 2}, (1, 2)),
+    (1, 2, 16, 5, 7, 37, "cl", {"shape": (2, 2)}, (2, 2)),
+    (1, 24, 40, 3, 5, 40, "ncdhw", {"shape": (1, 4), "weights": "streamed"}, (2, 4)),
+    (2, 32, 17, 4, 3, 18, "cl", {"shape": (2, 2), "blocks": 3}, (1, 1)),
+    (1, 48, 64, 3, 4, 16, "cl", {"sms": 1, "team": 8, "weights": "streamed", "blocks": 1},
+     (2, 8)),
+    (1, 12, 20, 9, 17, 40, "cl", {"sms": 8, "weights": "resident"}, (4, 8)),
+    # SynthMorph's 64-wide U-Net: the decoder's skip concat (ci 128, its
+    # input gradient 128 wide) and the first block (ci 2)
+    (1, 128, 64, 5, 6, 9, "cl", "auto", (4, 8)),
+    (1, 2, 64, 6, 5, 11, "cl", {"weights": "streamed"}, (4, 8))]]
+
+_WEIGHTS = {"resident": [(hs, 0) for hs in (3, 2, 1)],
+            "streamed": [(3, 3), (3, 2), (2, 2)]}
 
 
-def _plan(tile, fma_tile, batch, D, H, W, co, dtype, f32_fma):
+def _plan(tile, fma_tile, batch, ci, co, D, H, W, dtype, f32_fma):
+    """The plan of a case: the CUDA-core tile, or the tensor-core plan for
+    a conv of ci -> co channels, tile_plan's with the case's overrides."""
     if f32_fma:
         return fma_tile or conv3.fma_tile_plan(batch, D, H, co)
     if tile == "auto":
-        return conv3.tile_plan(batch, D, H, W, co, dtype)
-    if tile[0] == "small":
-        return (1, conv3._n_fragments(co), *tile[1:])
-    nwarps, tz, ty = tile[1:]
-    mf = conv3._MF_BIG[dtype]
-    return (mf, conv3._n_fragments(co), nwarps, tz, ty, mf * nwarps // (tz * ty))
+        return conv3.tile_plan(batch, ci, co, D, H, W, dtype)
+    plan = list(conv3.tile_plan(batch, ci, co, D, H, W, dtype, tile.get("sms", 132)))
+    mf, n = plan[:2]
+    team_warps = plan[7] = tile.get("team", plan[7])
+    if "shape" in tile or "team" in tile:
+        tz, ty = tile.get("shape", (2, 2))
+        plan[2:5] = [tz, ty, team_warps * mf // (tz * ty)]
+    tz, ty, txf = plan[2:5]
+    halo = (tz + 2) * (ty + 2) * (16 * txf + 2)
+    nchunks = -(-ci // conv3._KC[dtype])
+    groups, teams = -(-co // n), 8 // team_warps
+    if "weights" in tile:
+        plan[5:7] = next(stages for stages in _WEIGHTS[tile["weights"]] if conv3.smem_bytes(
+            halo, n, nchunks, *stages, dtype, groups, teams) <= conv3._SMEM_LIMIT)
+    elif "shape" in tile or "team" in tile:
+        plan[5:7] = conv3._stages(halo, n, nchunks, groups, dtype, teams, stream=True)
+    tiles = batch * -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * groups
+    plan[8] = tile.get("blocks", min(tiles, 132))
+    return tuple(plan)
 
 
 def _conv_launch(fn, x, kernel, bias, act_slope, round_conv_first, plan, forward):
@@ -246,7 +271,7 @@ def test_conv_kernel_within_tolerance_of_plain(conv_kernel, batch, ci, co, D, H,
     if layout == "cl":
         x = x.contiguous(memory_format=torch.channels_last_3d)
     f32_fma = orientation == "forward" and dtype == torch.float32
-    plan = _plan(tile, fma_tile, batch, D, H, W, kernel.shape[-1], dtype, f32_fma)
+    plan = _plan(tile, fma_tile, batch, *kernel.shape[3:], D, H, W, dtype, f32_fma)
     for act_slope, round_first in settings:
         copies = conv3.conv3_same_cf.layout_copies
         # the wrapper passes no bias for dx
@@ -270,17 +295,52 @@ def test_conv_kernel_within_tolerance_of_plain(conv_kernel, batch, ci, co, D, H,
                                            round_first, plan, forward))
 
 
-@pytest.mark.parametrize("change", [dict(nf=4), dict(tz=3), dict(nwarps=9, tz=9),
-                                    dict(bf16=2), dict(ci=0), dict(mf=3, tz=3),
-                                    dict(f32_fma=2), dict(f32_fma=1)])
+def test_conv_cases_cover_the_kernel_routes():
+    """CONV_CASES reach every route of the tensor-core kernel: the three
+    stagings of the input (``conv3.staging``), resident and streamed weights
+    in teams of one warpgroup and of both, each block width the U-Nets use
+    (48 composed of two products), 1 row a warp and the full-width rows,
+    blocks that walk several tiles, and a partial tile in every
+    direction."""
+    seen = set()
+    for param in CONV_CASES:
+        batch, ci, co, D, H, W, _layout, tile, fma_tile = param.values
+        for c_in, c_out in ((ci, co), (co, ci)):
+            for dtype in (torch.bfloat16, torch.float32):
+                mf, n, tz, ty, txf, hs, ws, team_warps, blocks = _plan(
+                    tile, fma_tile, batch, c_in, c_out, D, H, W, dtype, False)
+                tiles = batch * -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * -(-c_out // n)
+                seen |= {conv3.staging(c_in, dtype), f"n{n}",
+                         f"team{team_warps}-{'resident' if ws == 0 else 'streamed'}",
+                         "mf1" if mf == 1 else f"mf{mf}-{str(dtype)[6:]}"}
+                seen |= {"walks"} if blocks < tiles else set()
+                seen |= {axis for axis, size, step in (("z", D, tz), ("y", H, ty),
+                                                       ("x", W, 16 * txf)) if size % step}
+    assert {"tma", "cp.async", "copies", "n16", "n32", "n48", "n64", "n128", "team4-resident",
+            "team4-streamed", "team8-resident", "team8-streamed", "mf1", "mf4-bfloat16",
+            "mf2-bfloat16", "mf4-float32", "mf2-float32", "walks", "z", "y", "x"} <= seen, seen
+
+
+@pytest.mark.parametrize("change", [dict(n=80), dict(tz=3), dict(mf=2), dict(bf16=2),
+                                    dict(ci=0), dict(hstages=5), dict(wstages=5),
+                                    dict(blocks=0), dict(f32_fma=2), dict(f32_fma=1),
+                                    dict(team_warps=6), dict(team_warps=4, wstages=1),
+                                    dict(wstages=1), dict(n=96)])
 def test_conv_entry_point_refuses_what_it_cannot_run(conv_kernel, change):
-    """A tile whose rows do not match its warps, an unknown fragment count,
-    too many warps, an unknown dtype, no channels."""
+    """A block width the kernel has no instantiation of (80, 96), a tile
+    whose rows do not match the warps', rows a warp does not own at that
+    width (2 at 16 float32 channels: 4 or 1), an unknown dtype, no
+    channels, too many stages, no blocks, an unknown route, the CUDA-core
+    route given a tensor-core plan, a team that is not a warpgroup or both,
+    a ring of one streamed weight group (for one team or two), which would
+    hold the group a warp still reads while it waits for the next."""
     x = torch.zeros((1, 4, 4, 4, 16)).movedim(-1, 1)
+    plan = conv3.tile_plan(1, 16, 16, 4, 4, 4, torch.float32)
     y, _operands, args = conv3._kernel_args(x, torch.zeros((3, 3, 3, 16, 16)),
-                                            torch.zeros(16), 0.2, False, (2, 1, 4, 2, 2, 2))
+                                            torch.zeros(16), 0.2, False, plan)
     names = ["x", "w", "bias", "y", "B", "ci", "co", "D", "H", "W", "bf16", "has_act",
-             "slope", "round_first", "f32_fma", "mf", "nf", "nwarps", "tz", "ty", "txf"]
+             "slope", "round_first", "f32_fma", "mf", "n", "tz", "ty", "txf", "hstages",
+             "wstages", "team_warps", "blocks"]
     args = list(args)
     assert conv_kernel(*args, None) == 0
     for key, value in change.items():

@@ -53,29 +53,29 @@ from .. import _build
 
 __all__ = ["set_pallas_conv", "pallas_conv_enabled", "set_xla_dw_einsum",
            "xla_dw_einsum_enabled", "jax_kernel_takes", "conv3_same_cf_plain",
-           "kernel_tolerance", "tile_plan", "fma_tile_plan", "conv3_same_cf",
+           "kernel_tolerance", "staging", "tile_plan", "fma_tile_plan", "conv3_same_cf",
            "conv3_input_grad", "conv3_same", "conv3_same_lean_dw"]
 
 _FORCED = None     # process-local override of VXM_PALLAS_CONV
 _FORCED_DW = None  # process-local override of VXM_XLA_DW_EINSUM
 
 _CL = torch.channels_last_3d
-# the CUDA kernel's fragments (csrc/conv3.cu): rows of 16 x-voxels, groups
-# of 16 output channels; input channels staged KC at a time (32 bytes)
+# the CUDA kernel (csrc/conv3.cu): rows of 16 x-voxels; input channels
+# staged KC at a time (32-byte rows); the widths of output channels a block
+# computes (a wider conv takes several groups of the widest)
 _FR = 16
 _KC = {torch.bfloat16: 16, torch.float32: 8}
-# M fragments of a warp in the kernel's large tiles (Mma<T>::MF)
-_MF_BIG = {torch.bfloat16: 4, torch.float32: 2}
-_MAX_WARPS = 8
-# chunks of the input staged at a time (csrc/conv3.cu: Mma<T>::STAGES)
-_STAGES = {torch.bfloat16: 1, torch.float32: 2}
+_WIDTHS = (16, 32, 48, 64, 128)
+_CONSUMER_WARPS = 8
+# weight planes of a group of 9 taps (float32: a big and a small copy each),
+# and bytes of a voxel's 16 channels in the epilogue's buffer
+_PLANES = {torch.bfloat16: 9, torch.float32: 18}
+_OUT_STRIDE = {torch.bfloat16: 48, torch.float32: 96}
+_ALIGN = 1024
 _SMEM_LIMIT = 232448
-# streaming multiprocessors of an H100: the least number of blocks a conv
-# launches where its shape allows
-_MIN_BLOCKS = 132
-# voxels a row of a halo tile costs to stage beyond its own (tile_plan)
-_ROW_COST = 16
-# bytes of f32 im2col columns the plain version builds at a time
+# streaming multiprocessors of an H100: the persistent grid where no card
+# says otherwise
+_SMS = 132
 _PLAIN_CHUNK_BYTES = 256 * 2 ** 20
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -219,69 +219,175 @@ def kernel_tolerance(plain: torch.Tensor, bias: torch.Tensor,
 
 # --- the CUDA kernel ----------------------------------------------------------
 
-def _stage_bytes(halo_voxels, nf, dtype):
-    elem = 2 if dtype == torch.bfloat16 else 4
-    return halo_voxels * 32 + 27 * _KC[dtype] * _FR * nf * elem
+def block_width(co: int) -> int:
+    """Output channels a block of the tensor-core kernel computes: the
+    narrowest width that takes all of co, else the widest (several groups)."""
+    return next((n for n in _WIDTHS if n >= co), _WIDTHS[-1])
 
 
-def _n_fragments(co: int) -> int:
-    """N fragments of 16 output channels a block computes: all of co up to
-    48, else groups of 32."""
-    return -(-co // _FR) if co <= 3 * _FR else 2
+def rows_per_warp(dtype, n: int) -> int:
+    """Rows of 16 voxels each of a tile's warps owns by default (the
+    kernel's rows_per_warp): the sums take rows * n / 2 registers a thread,
+    twice that in float32 (the total and the tensor cores' part of 3 taps),
+    beside the A fragments of the products in flight. A plan may take 1
+    instead, where small volumes leave SMs without a tile."""
+    if dtype == torch.bfloat16:
+        return 4 if n <= 48 else 2
+    return 4 if n <= 16 else 2 if n <= 64 else 1
+
+
+def staging(ci: int, dtype, address: int = 0) -> str:
+    """How the kernel stages an input of ``ci`` channels at ``address`` (as
+    ``vxm_conv3_fwd`` decides it): "tma" where its channel rows are whole
+    16-byte vectors, "cp.async" where they are whole 4-byte words, else
+    "copies" (element by element), the first two only from a 16-byte
+    aligned address."""
+    row = ci * dtype.itemsize
+    if address % 16:
+        return "copies"
+    return "tma" if row % 16 == 0 else "cp.async" if row % 4 == 0 else "copies"
+
+
+def _align(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def smem_bytes(halo_voxels, n, nchunks, hstages, wstages, dtype, groups=1, teams=1) -> int:
+    """Dynamic shared memory of a launch, as ``csrc/conv3.cu`` lays it out:
+    for each of ``teams`` teams of consumer warps ``hstages`` halo tiles and
+    ``wstages`` weight groups (0: all ``3 nchunks`` resident, shared), each
+    1024-aligned, the epilogue's buffers (two a warp), the bias of ``groups`` blocks of
+    ``n`` channels in f32, the mbarriers, and room to align the base."""
+    nh, nw = teams * hstages, teams * wstages or 3 * nchunks
+    return (nh * _align(halo_voxels * 32) + nw * _align(_PLANES[dtype] * n * 32)
+            + _CONSUMER_WARPS * 2 * _FR * _OUT_STRIDE[dtype] + -(-groups * n * 4 // 16) * 16
+            + (2 * nh + 2 * nw) * 8 + _ALIGN)
+
+
+def _stages(halo_voxels, n, nchunks, groups, dtype, teams=1, stream=None):
+    """A team's rings: every weight group resident where they fit (and co
+    needs one group), else streamed through a ring of at least two groups
+    (for two teams only where ``stream``, default for one team); as many
+    stages as fit, up to 3. None where nothing fits."""
+    stream = teams == 1 if stream is None else stream
+    options = ([(hs, 0) for hs in (3, 2, 1)] if groups == 1 else []) + \
+        ([(3, 3), (3, 2), (2, 2)] if stream else [])
+    for hs, ws in options:
+        if smem_bytes(halo_voxels, n, nchunks, hs, ws, dtype, groups, teams) <= _SMEM_LIMIT:
+            return hs, ws
+    return None
+
+
+def _tiles(B, D, H, xf, groups, team_warps, mf, dtype, n, nchunks, stream):
+    """Each tile shape of ``team_warps * mf`` rows that fits, with its rings:
+    ``(tiles, halo voxels, (mf, n, tz, ty, txf, hstages, wstages,
+    team_warps))``."""
+    rows = team_warps * mf
+    for tz in range(1, rows + 1):
+        for ty in range(1, rows // tz + 1):
+            if rows % (tz * ty):
+                continue
+            txf = rows // (tz * ty)
+            if txf > xf or _FR * txf + 2 > 256:
+                continue
+            halo = (tz + 2) * (ty + 2) * (_FR * txf + 2)
+            stages = _stages(halo, n, nchunks, groups, dtype, _CONSUMER_WARPS // team_warps,
+                             stream)
+            if stages is not None:
+                tiles = B * -(-D // tz) * -(-H // ty) * -(-xf // txf) * groups
+                yield tiles, halo, (mf, n, tz, ty, txf, *stages, team_warps)
 
 
 @functools.lru_cache(maxsize=None)
-def tile_plan(B: int, D: int, H: int, W: int, co: int, dtype) -> tuple:
-    """The CUDA kernel's tile for a conv: ``(mf, nf, nwarps, tz, ty, txf)``.
+def tile_plan(B: int, ci: int, co: int, D: int, H: int, W: int, dtype, sms: int = _SMS,
+              route: Optional[str] = None) -> tuple:
+    """The tensor-core kernel's plan for a conv: ``(mf, n, tz, ty, txf,
+    hstages, wstages, team_warps, blocks)``.
 
-    A block of ``nwarps`` warps computes ``tz x ty x 16 txf`` output voxels,
-    rows of 16 x-voxels of which each warp owns ``mf``, for ``16 nf`` output
-    channels. The largest tile that still gives ``_MIN_BLOCKS`` blocks is
-    taken (one block per SM of an H100 at least), and of its shapes the one
-    that stages the least: the voxels of all its blocks' halo tiles (ragged
-    edges included), plus ``_ROW_COST`` for each row of a halo tile, which
-    a warp stages at once (on an H100 a 4 x 4 x 32 bfloat16 tile beat a
-    4 x 8 x 16 one). The deep convs of the U-Net get one row of one warp
-    per block.
+    A team of ``team_warps`` consumer warps computes ``n`` output channels
+    (``block_width``) of a tile of ``tz x ty x 16 txf`` voxels, ``mf``
+    rows of 16 x-voxels a warp. Where the weights stay resident and the
+    input goes by TMA (``route``, default ``staging(ci, dtype)``), each of
+    a block's two warpgroups is a team of 4 and they take its tiles in turn
+    (one's epilogue under the other's products); else one team of 8 shares
+    each tile and its weight loads. At ``rows_per_warp`` rows a warp, of the
+    tile shapes the one whose tiles fill the fewest rounds of ``sms``
+    persistent blocks' teams (one block per SM; ragged edge tiles
+    included), then stages the fewest halo voxels, with its rings
+    (``_stages``: ``wstages`` 0 keeps the weights resident). Where that
+    leaves an SM without a tile (a small volume), the plan over 1 or
+    ``rows_per_warp`` rows a warp and both teams (a team of 4 then also
+    streaming its own weights) of the fewest rows a warp computes on the
+    busiest SM (its tiles over its teams, times ``mf``), then the fewest
+    weight loads there (streamed, one a tile; resident, one), then the most
+    SMs with a tile, then the fewest halo voxels staged in all (on an
+    H100, at 20x24x28, two teams of 4 each streaming the weights for a tile
+    of their own were slower than one team of 8 on twice the rows, with
+    120 tiles for 132 SMs). ``blocks`` is the persistent grid, one block
+    per SM or one per tile.
     """
-    nf0 = _n_fragments(co)
+    n = block_width(co)
+    groups = -(-co // n)
+    mf = rows_per_warp(dtype, n)
+    nchunks = -(-ci // _KC[dtype])
     xf = -(-W // _FR)
-    mfb = _MF_BIG[dtype]
-    for mf, nwarps, nf in ((mfb, 8, nf0), (mfb, 4, nf0), (1, 4, nf0), (1, 2, nf0),
-                           (1, 1, nf0), (1, 1, 1)):
-        rows = mf * nwarps
-        groups = -(-co // (_FR * nf))
-        best = None
-        for tz in range(1, rows + 1):
-            for ty in range(1, rows // tz + 1):
-                if rows % (tz * ty) or rows // (tz * ty) > xf:
-                    continue
-                txf = rows // (tz * ty)
-                halo = (tz + 2) * (ty + 2) * (_FR * txf + 2)
-                smem = max(_STAGES[dtype] * _stage_bytes(halo, nf, dtype),
-                           rows * _FR * _FR * nf * 4)
-                if smem > _SMEM_LIMIT:
-                    continue
-                blocks = B * -(-D // tz) * -(-H // ty) * -(-xf // txf) * groups
-                cost = blocks * (halo + _ROW_COST * (tz + 2) * (ty + 2))
-                if best is None or cost < best[0]:
-                    best = (cost, blocks, (mf, nf, nwarps, tz, ty, txf))
-        if best[1] >= _MIN_BLOCKS:
+    tma = (route or staging(ci, dtype)) == "tma"
+    shape = (B, D, H, xf, groups)
+    plan = None
+    for team_warps in ((4, 8) if tma and groups == 1 else (8,)):
+        teams = _CONSUMER_WARPS // team_warps
+        options = list(_tiles(*shape, team_warps, mf, dtype, n, nchunks, None))
+        if options:
+            tiles, _halo, plan = min(options, key=lambda o: (-(-o[0] // (teams * sms)), o[1]))
             break
-    return best[2]
+    if plan is None or tiles < sms:
+        options = [o for team_warps in ((4, 8) if tma else (8,)) for m in dict.fromkeys((mf, 1))
+                   for o in _tiles(*shape, team_warps, m, dtype, n, nchunks, True)]
+        if not options:
+            raise ValueError(f"no tile of the conv3 kernel fits {ci} -> {co} channels in "
+                             f"{dtype}")
+        def cost(option):
+            tiles, halo, (mf, *_, wstages, team_warps) = option
+            per_sm = -(-tiles // sms)
+            return (-(-per_sm * team_warps // _CONSUMER_WARPS) * mf,
+                    per_sm if wstages else 1, -min(tiles, sms), tiles * halo)
+        tiles, _halo, plan = min(options, key=cost)
+    return (*plan, min(tiles, sms))
 
 
 def fma_tile_plan(B: int, D: int, H: int, co: int) -> tuple:
     """The tile ``(tz, ty)`` of the float32 CUDA-core kernel: blocks of
     ``tz x ty x 32`` voxels for 16 output channels, the largest that still
-    gives ``_MIN_BLOCKS`` blocks along z, y and the channels alone, and no
+    gives ``_SMS`` blocks along z, y and the channels alone, and no
     smaller than 2 x 4 x 32 (64 threads): on an H100, blocks of one row of
     8 threads made the deep convs slower than fewer, larger blocks."""
     groups = -(-co // _FR)
     for tz, ty in ((4, 8), (2, 8), (2, 4)):
-        if B * -(-D // tz) * -(-H // ty) * groups >= _MIN_BLOCKS:
+        if B * -(-D // tz) * -(-H // ty) * groups >= _SMS:
             break
     return tz, ty
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as the kernel's cvt.rna.tf32.f32; t finite."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tensor_core_weights(kernel: torch.Tensor, dtype, n: int) -> torch.Tensor:
+    """kernel ``(3, 3, 3, ci, co)`` laid out as the tensor-core kernel loads
+    it: rows of KC input channels, zero past ci and past co (up to whole
+    blocks of ``n``), ``[chunk][dz][dy dx][co][KC]``; float32 as its 3xTF32
+    split, ``[chunk][dz][big, small][dy dx][co][KC]``."""
+    ci, co = kernel.shape[3:]
+    kc = _KC[dtype]
+    nchunks, width = -(-ci // kc), -(-co // n) * n
+    w = F.pad(kernel.to(dtype).reshape(27, ci, co), (0, width - co, 0, nchunks * kc - ci))
+    w = w.reshape(3, 9, nchunks, kc, width).permute(2, 0, 1, 4, 3)
+    if dtype == torch.float32:
+        big = _tf32(w.contiguous())
+        w = torch.stack([big, _tf32(w - big)], 2)
+    return w.contiguous()
 
 
 def _kernel_args(x, kernel, bias, act_slope, round_conv_first, plan=None, f32_fma=False):
@@ -289,20 +395,26 @@ def _kernel_args(x, kernel, bias, act_slope, round_conv_first, plan=None, f32_fm
 
     x: ``(B, ci, D, H, W)``, channels-last in memory; kernel ``(3, 3, 3, ci,
     co)`` and bias ``(co,)`` (None: no bias) are rounded to x's dtype, the
-    kernel laid out ``(27, co, ci)``. ``plan`` is the tensor-core tile
-    (default ``tile_plan``); ``f32_fma`` runs float32 on the CUDA cores in
-    cuDNN's order instead, ``plan`` then its ``(tz, ty)`` (default
-    ``fma_tile_plan``). Returns ``(y, operands, args)``: the output to
-    be written (channels-last), the tensors that ``args``' pointers point
-    into, to be kept alive until the kernel has run, and the arguments.
+    kernel laid out for the route taken. ``plan`` is the tensor-core plan
+    (default ``tile_plan`` for x's card); ``f32_fma`` runs float32 on the
+    CUDA cores in cuDNN's order instead, ``plan`` then its ``(tz, ty)``
+    (default ``fma_tile_plan``), the kernel ``(27, co, ci)``. Returns ``(y,
+    operands, args)``: the output to be written (channels-last), the tensors
+    that ``args``' pointers point into, to be kept alive until the kernel
+    has run, and the arguments.
     """
     B, ci, D, H, W = x.shape
     co = kernel.shape[-1]
     if f32_fma:
-        plan = (0, 0, 0, *(plan or fma_tile_plan(B, D, H, co)), 0)
+        plan = (0, 0, *(plan or fma_tile_plan(B, D, H, co)), 0, 0, 0, 0, 0)
+        w = kernel.to(x.dtype).reshape(27, ci, co).transpose(1, 2).contiguous()
     else:
-        plan = plan or tile_plan(B, D, H, W, co, x.dtype)
-    w = kernel.to(x.dtype).reshape(27, ci, co).transpose(1, 2).contiguous()
+        if plan is None:
+            sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+                   if x.device.type == "cuda" else _SMS)
+            plan = tile_plan(B, ci, co, D, H, W, x.dtype, sms,
+                             staging(ci, x.dtype, x.data_ptr()))
+        w = _tensor_core_weights(kernel, x.dtype, plan[1])
     b = None if bias is None else bias.to(x.dtype).contiguous()
     y = torch.empty((B, co, D, H, W), dtype=x.dtype, device=x.device, memory_format=_CL)
     args = (x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
@@ -323,7 +435,7 @@ def _slope(act_slope, round_conv_first, dtype):
 
 # ctypes types of vxm_conv3_fwd's arguments
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-    [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward):
@@ -341,7 +453,7 @@ def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward
     if err != 0:
         raise RuntimeError(f"vxm_conv3_fwd CUDA kernel failed to launch: CUDA error {err} "
                            f"(shape {tuple(x.shape)}, co={kernel.shape[-1]}, {x.dtype}, "
-                           f"tile {args[-6:]})")
+                           f"plan {args[-9:]})")
     conv3_same_cf.launches += 1
     return y
 
