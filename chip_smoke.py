@@ -10,6 +10,9 @@ Run from the root of the repository:
         # csrc/warp_bounded.cu) on phases 2 and 2b's inputs
     python3 chip_smoke.py --compare-gather-source OLD/warp_gather.cu
         # also time an earlier commit's gather kernels on phase 2e's inputs
+    python3 chip_smoke.py --compare-conv-source OLD/conv3.cu
+        # also time an earlier commit's float32 conv forward (the CUDA-core
+        # kernel) in turns with the package's in phases 2d and 12b
     python3 chip_smoke.py --conditioning
         # also the readings behind phase 8's and 12c's card-vs-CPU limits,
         # 12c's dispatch halo and 13c's masked faces
@@ -42,8 +45,14 @@ Phases:
      inputs (vs_library, the kernel's time over cuDNN's) and the route each
      takes (the input by TMA, the producer's cp.async or its element
      copies, the weights resident or streamed, tiles of one warpgroup or
-     both, as the wrapper plans them); phase 12b does the same at
-     SynthMorph's 10 conv shapes, read off its model;
+     both, as the wrapper plans them); the float32 forward (the CUDA-core
+     kernel, with its plan) also bit-equal to its FMA chain in cuDNN's
+     order (conv3.conv3_fma_chain) on planes at both z faces and the
+     middle, its bound at the CUDA cores' float32 rate with the 3xTF32
+     figure beside it, the share of its outputs equal to cuDNN's
+     full-float32 conv3d logged, and any --compare-conv-source build timed
+     in turns with it; phase 12b does the same at SynthMorph's 10 conv
+     shapes, read off its model;
   2e. the tiered warp's predicated kernels at each tier of {1, 2} at the
      squaring shape, 1 to 4 channels: every branch launched with the
      device's tier word into its own NaN-filled buffer (the gather's dvol,
@@ -460,6 +469,9 @@ UNET_CONVS = [(160, 192, 224, 2, 16), (80, 96, 112, 16, 32), (40, 48, 56, 32, 32
 # convs, their recomputation in the backward (the per-block remat), and the
 # input gradients of all but the first
 TRAIN_STEP_CONVS = 3 * len(UNET_CONVS) - 1
+# of them the float32 forward's, on the CUDA cores: the forward and its
+# recomputation
+TRAIN_STEP_F32_FWD_CONVS = 2 * len(UNET_CONVS)
 # the tiers {1, H} of the predicated-warp checks (phase 2e and phase 7):
 # with H = 2 a warp has three branches, the halo-1 and halo-2 bounded
 # kernels and the gather
@@ -509,6 +521,7 @@ def full_float32():
 
 def reset_launches():
     warp_bounded.launches = warp_bounded_bwd.launches = conv3.conv3_same_cf.launches = 0
+    conv3.conv3_same_cf.f32_fma_launches = 0
     launch_gather_fwd.launches = launch_gather_bwd.launches = 0
     conv3.conv3_same_cf.layout_copies = 0
     warp_bounded_ops.reset_work()
@@ -525,6 +538,7 @@ def read_launches():
             "gather_fwd_ran": work["warp_gather_fwd"],
             "gather_bwd_ran": work["warp_gather_bwd"],
             "conv": conv3.conv3_same_cf.launches,
+            "conv_f32_fwd": conv3.conv3_same_cf.f32_fma_launches,
             "layout_copies": conv3.conv3_same_cf.layout_copies}
 
 
@@ -545,7 +559,8 @@ def check_warp_work(counts, label, backward=True):
 
 def no_warp_launches(counts):
     """True where ``counts`` (read_launches) hold no warp kernel launch."""
-    return not any(v for k, v in counts.items() if k not in ("conv", "layout_copies"))
+    return not any(v for k, v in counts.items()
+                   if k not in ("conv", "conv_f32_fwd", "layout_copies"))
 
 
 def tensor_core_instructions(name, opcode="HGMMA"):
@@ -915,7 +930,8 @@ def bf16_vs_f32(moved, warp, moved_f32, warp_f32):
 
 def register_conv_kernel(moving, fixed):
     """Phase 3b: the serving path with the conv kernel. Returns the launch
-    counts of one bfloat16 register call and its ms per pair."""
+    counts of one bfloat16 register call, its ms per pair, and the launch
+    counts of one float32 register call (the CUDA-core forward)."""
     with conv_kernel_mode(True):
         register = build_register_fn(load_model(str(CHECKPOINT), device="cuda"))
         reset_launches()
@@ -947,18 +963,19 @@ def register_conv_kernel(moving, fixed):
             reset_launches()
             f32[enabled] = build_register_fn(model)(moving, fixed)
             torch.cuda.synchronize()
-            f32_launches[enabled] = read_launches()["conv"]
+            f32_launches[enabled] = read_launches()
     flow_err, _ = max_and_mean_abs(f32[True][1], f32[False][1])
     image_err, _ = max_and_mean_abs(f32[True][0], f32[False][0])
-    log(f"float32, conv kernel ({f32_launches[True]} launches) vs cuDNN "
-        f"({f32_launches[False]}): pos_flow max abs err {flow_err:.3e} (tol {FLOW_TOL}), "
+    f32_counts = {enabled: (n["conv"], n["conv_f32_fwd"]) for enabled, n in f32_launches.items()}
+    log(f"float32, conv kernel ({f32_counts[True]} launches, all, CUDA-core forward) vs cuDNN "
+        f"({f32_counts[False]}): pos_flow max abs err {flow_err:.3e} (tol {FLOW_TOL}), "
         f"y_source max abs err {image_err:.3e} (tol {IMAGE_TOL})")
-    if f32_launches != {True: len(UNET_CONVS), False: 0}:
-        raise AssertionError(f"float32 conv launches {f32_launches}")
+    if f32_counts != {True: (len(UNET_CONVS),) * 2, False: (0, 0)}:
+        raise AssertionError(f"float32 conv launches {f32_counts}")
     if not (flow_err <= FLOW_TOL and image_err <= IMAGE_TOL):
         raise AssertionError("float32 conv-kernel run disagrees with the cuDNN run")
     bf16_vs_f32(moved, warp, *f32[True])
-    return launches, ms
+    return launches, ms, f32_launches[True]
 
 
 def fast_warp_check(moving, fixed):
@@ -1201,17 +1218,18 @@ def conv_bound(ci, co, vox, dtype, f32_rate=F32_CONV_FLOPS_PER_S):
 
 def conv_route(x, c_out, orientation):
     """The conv kernel's route for one conv of input ``x`` (B, ci, D, H, W):
-    the float32 forward on the CUDA cores, else the tensor-core plan the
+    the float32 forward on the CUDA cores with its plan, else the tensor-core
+    plan the
     wrapper makes for x: the staging of the input (``conv3.staging``: TMA,
     the producer's cp.async or element copies), its weights (resident or
     streamed) and its team (one warpgroup or both on a tile)."""
-    if x.dtype == torch.float32 and orientation != "dx":
-        return dict(route="cuda_cores")
     B, c_in, D, H, W = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if x.dtype == torch.float32 and orientation != "dx":
+        return dict(route="cuda_cores", plan=list(conv3.fma_plan(B, c_in, c_out, D, H, W, sms)))
     staging = conv3.staging(c_in, x.dtype, x.data_ptr())
     mf, n, tz, ty, txf, hstages, wstages, team_warps, blocks = conv3.tile_plan(
-        B, c_in, c_out, D, H, W, x.dtype,
-        torch.cuda.get_device_properties(x.device).multi_processor_count, staging)
+        B, c_in, c_out, D, H, W, x.dtype, sms, staging)
     return dict(route="wgmma", staging=staging,
                 weights="streamed" if wstages else "resident", team_warps=team_warps,
                 plan=[mf, n, tz, ty, txf, hstages, wstages, team_warps, blocks])
@@ -1225,14 +1243,62 @@ def check_conv3(seed, convs=UNET_CONVS, orientations=("fwd", "fwd_act_off", "dx"
     and a non-zero bias (``do_res`` blocks), and the input-gradient
     orientation (taps flipped, ci and co swapped, no bias or activation),
     those of ``orientations``, in ``dtypes``, within conv3.kernel_tolerance
-    and bit-equal across two launches; times of the rounding order the main
-    path uses beside the bound and cuDNN's, cuDNN's float32 in full
-    float32, as the kernel computes, with the route each takes
-    (``conv_route``). Returns the rows and the totals by (dtype,
-    orientation) over the convs a register call (forward) and a train step
-    (input gradient: all but the first) run."""
+    and bit-equal across two launches; the float32 forward (the CUDA-core
+    kernel) also bit-equal to conv3.conv3_fma_chain, cuDNN's order of FMAs,
+    on slabs of output planes at both z faces (fma_chain_planes), with the
+    share of its outputs equal to cuDNN's full-float32 conv3d logged; times
+    of the rounding order the main path uses beside the bound (the float32
+    forward's at the CUDA cores' rate, the 3xTF32 figure beside it) and
+    cuDNN's, cuDNN's float32 in full float32, as the kernel computes, with
+    the route each takes (``conv_route``), and each --compare-conv-source
+    build of the float32 forward timed in turns with it. Returns the rows
+    and the totals by (dtype, orientation) over the convs a register call
+    (forward) and a train step (input gradient: all but the first) run."""
     with full_float32():
         return _check_conv3(seed, convs, orientations, label, dtypes)
+
+
+def fma_chain_planes(D):
+    """Output z planes on which the float32 forward is held to its FMA chain:
+    two at each face (the zero padding's taps) and two in the middle."""
+    return sorted({0, 1, D // 2, D // 2 + 1, D - 2, D - 1} & set(range(D)))
+
+
+def parent_fma_tile(B, D, H, co):
+    """The tile (tz, ty) of the CUDA-core kernel before its redesign (the
+    former ops/conv3.py fma_tile_plan), which a --compare-conv-source build
+    of a commit from before it takes: blocks of tz x ty x 32 voxels and 16
+    output channels, the largest that still gives 132 blocks."""
+    groups = -(-co // 16)
+    for tz, ty in ((4, 8), (2, 8), (2, 4)):
+        if B * -(-D // tz) * -(-H // ty) * groups >= 132:
+            break
+    return tz, ty
+
+
+def compare_conv_launch(lib, x, kernel, bias, act_slope, order):
+    """The float32 forward of a --compare-conv-source build (the parent
+    commit's CUDA-core kernel): its weights (27, co, ci), its (tz, ty) tile
+    and no other plan argument. Returns y."""
+    B, ci, D, H, W = x.shape
+    co = kernel.shape[-1]
+    w = kernel.reshape(27, ci, co).transpose(1, 2).contiguous()
+    y = torch.empty((B, co, D, H, W), device=x.device, memory_format=torch.channels_last_3d)
+    fn = lib.vxm_conv3_fwd
+    fn.argtypes = conv3._ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), B, ci, co, D, H, W, 0,
+             int(act_slope is not None), conv3._slope(act_slope, order, torch.float32),
+             int(order), 1, 0, 0, *parent_fma_tile(B, D, H, co), 0, 0, 0, 0, 0,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the compared conv build failed to launch: CUDA error {err}")
+    return y
+
+
+# other builds of csrc/conv3.cu (--compare-conv-source) whose float32
+# forward check_conv3 times beside the package's, by label
+COMPARE_CONV = {}
 
 
 def _check_conv3(seed, convs, orientations, label, dtypes):
@@ -1267,13 +1333,16 @@ def _check_conv3(seed, convs, orientations, label, dtypes):
                 "dx": (g, flipped, torch.zeros(ci, device="cuda"), None, [False], (co, ci),
                        lambda order, g=g, kernel=kernel: conv3.conv3_input_grad(g, kernel)),
             }
+            chain_sums = None  # the float32 forward's FMA chains, on its planes
             for orientation, (inp, k, b, slope, orders, (c_in, c_out), launch) in \
                     cases.items():
                 if orientation not in orientations:
                     continue
+                cuda_cores = dtype == torch.float32 and orientation != "dx"
                 err = ratio = 0.0
                 equal_share = 1.0
                 repeatable = True
+                chain = {}
                 for order in orders:
                     y = launch(order)
                     y2 = launch(order)
@@ -1284,25 +1353,58 @@ def _check_conv3(seed, convs, orientations, label, dtypes):
                     ratio = max(ratio, (diff / conv3.kernel_tolerance(plain, b, order)).max().item())
                     equal_share = min(equal_share, (y == plain).float().mean().item())
                     repeatable = repeatable and torch.equal(y, y2)
+                    if cuda_cores:
+                        planes = fma_chain_planes(D)
+                        if chain_sums is None:
+                            chain_sums = conv3.fma_chain_sums(inp, k, planes)
+                        want = conv3.conv3_fma_chain(inp, k, b, slope, order, planes,
+                                                     sums=chain_sums)
+                        chain[order] = torch.equal(y[:, :, planes], want)
+                        # cuDNN's full-float32 conv3d with the same epilogue
+                        lib = F.conv3d(inp, k.permute(4, 3, 0, 1, 2).contiguous(), b, padding=1)
+                        if slope is not None:
+                            lib = torch.where(lib >= 0, lib, lib * slope)
+                        library_equal_share = (y == lib).float().mean().item()
+                        del want, lib
                     del y, y2, plain, diff
                 order = orders[0]
                 w_lib = k.permute(4, 3, 0, 1, 2).to(dtype).contiguous()
                 b_lib = b.to(dtype)
-                bound_ms, bound_by, t_bytes, t_ops = conv_bound(c_in, c_out, vox, dtype)
-                # float32's bound at the CUDA-core rate (the bound stated before
-                # the tensor-core kernel), for comparison
-                cuda_core_ms = conv_bound(c_in, c_out, vox, dtype, F32_FLOPS_PER_S)[0]
+                # float32: the forward's bound at the CUDA cores' rate (its FMA
+                # chains cannot take the tensor cores), the input gradient's
+                # at three TF32 passes; each beside the other
+                rate, other = ((F32_FLOPS_PER_S, F32_CONV_FLOPS_PER_S) if cuda_cores else
+                               (F32_CONV_FLOPS_PER_S, F32_FLOPS_PER_S))
+                bound_ms, bound_by, t_bytes, t_ops = conv_bound(c_in, c_out, vox, dtype, rate)
+                other_ms = conv_bound(c_in, c_out, vox, dtype, other)[0]
+                fns = {"ms": lambda: launch(order),
+                       "library_ms": lambda: F.conv3d(inp, w_lib, b_lib, padding=1)}
+                compare = {}
+                if cuda_cores:
+                    for name, lib_ in COMPARE_CONV.items():
+                        other_y = compare_conv_launch(lib_, inp, k, b, slope, order)
+                        compare[name] = dict(equal=torch.equal(other_y, launch(order)))
+                        del other_y
+                        fns[f"compare {name}"] = lambda lib_=lib_: compare_conv_launch(
+                            lib_, inp, k, b, slope, order)
+                times = time_in_turns(fns) if compare else {
+                    key: time_cuda_ms(fn) for key, fn in fns.items()}
+                for name in compare:
+                    compare[name]["ms"] = times.pop(f"compare {name}")
                 row = dict(
                     conv=index, orientation=orientation, dtype=str(dtype).split(".")[1],
                     shape=[1, c_in, D, H, W], co=c_out, round_conv_first=order,
                     max_abs_err=err, max_err_over_tol=ratio, equal_share=equal_share,
-                    repeatable=repeatable,
-                    ms=time_cuda_ms(lambda: launch(order)),
+                    repeatable=repeatable, **times,
                     plain_ms=time_cuda_ms(lambda: conv3.conv3_same_cf_plain(
                         inp, k, b, slope, None, order), reps=3, warmup=1),
-                    library_ms=time_cuda_ms(lambda: F.conv3d(inp, w_lib, b_lib, padding=1)),
                     bound_ms=bound_ms, bound_by=bound_by,
                     **conv_route(inp, c_out, orientation))
+                if cuda_cores:
+                    row.update(tf32x3_bound_ms=other_ms, fma_chain_equal=chain,
+                               fma_chain_planes=planes, library_equal_share=library_equal_share)
+                if compare:
+                    row["compare"] = compare
                 row["bound_share"] = bound_ms / row["ms"]
                 row["vs_library"] = row["ms"] / row["library_ms"]
                 log(json.dumps(row))
@@ -1311,6 +1413,9 @@ def _check_conv3(seed, convs, orientations, label, dtypes):
                                          f"{ratio:.3f} of its tolerance at {row}")
                 if not repeatable:
                     raise AssertionError(f"two launches of the conv3 kernel differ at {row}")
+                if not all(chain.values()):
+                    raise AssertionError(f"the float32 conv3 kernel differs from its FMA chain "
+                                         f"(cuDNN's order) at {row}")
                 # in bfloat16 the sums' order rarely flips a rounding (the
                 # other rounding order differs in about a third of outputs)
                 if dtype == torch.bfloat16 and not equal_share >= BF16_EQUAL_SHARE:
@@ -1320,25 +1425,34 @@ def _check_conv3(seed, convs, orientations, label, dtypes):
                 if orientation != "dx" or index > 0:
                     t = totals.setdefault((row["dtype"], orientation), dict(
                         convs=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                        t_bytes=0.0, t_ops=0.0, cuda_core_bound_ms=0.0))
+                        t_bytes=0.0, t_ops=0.0, other_bound_ms=0.0,
+                        **{f"compare {name}": 0.0 for name in compare}))
                     t["convs"] += 1
-                    t["cuda_core_bound_ms"] += cuda_core_ms
+                    t["other_bound_ms"] += other_ms
                     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                         t[key] += row[key]
+                    for name in compare:
+                        t[f"compare {name}"] += compare[name]["ms"]
                     t["t_bytes"] += t_bytes
                     t["t_ops"] += t_ops
-            del x, g, kernel, flipped
+            del x, g, kernel, flipped, chain_sums
     for (dtype, orientation), t in totals.items():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
         t["bound_share"] = t["bound_ms"] / t["ms"]
         t["vs_library"] = t["ms"] / t["library_ms"]
-        f32_note = (f"; at the float32 CUDA-core rate the bound was "
-                    f"{t['cuda_core_bound_ms']:.4f} ms" if dtype == "float32" else "")
-        t.pop("cuda_core_bound_ms")
+        other = t.pop("other_bound_ms")
+        note = ""
+        if dtype == "float32" and orientation != "dx":
+            t["tf32x3_bound_ms"] = other
+            note = f"; at three TF32 passes {other:.4f} ms"
+        elif dtype == "float32":
+            note = f"; at the float32 CUDA-core rate the bound was {other:.4f} ms"
+        compared = "".join(f", {key} {val:.4f} ms" for key, val in t.items()
+                           if key.startswith("compare "))
         log(f"{label} {dtype} {orientation}, {t['convs']} convs: kernel {t['ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}{f32_note}; bound_share "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}{note}; bound_share "
             f"{t['bound_share']:.3f}), plain {t['plain_ms']:.4f} ms, cuDNN {t['library_ms']:.4f} "
-            f"ms (vs_library {t['vs_library']:.3f})")
+            f"ms (vs_library {t['vs_library']:.3f}){compared}")
     return rows, totals
 
 
@@ -1527,7 +1641,8 @@ def train_conv_kernel(moving, fixed, profile):
             f"{x:.4f}" for x in step_s) + f" s/step; peak memory allocated {peak_gb:.3f} GiB")
         if not (all(np.isfinite(step_losses)) and step_losses[-1] < step_losses[0]):
             raise AssertionError(f"three steps did not lower the loss: {step_losses}")
-        if any(p["conv"] != expected for p in per_step):
+        if any(p["conv"] != expected or p["conv_f32_fwd"] != TRAIN_STEP_F32_FWD_CONVS
+               for p in per_step):
             raise AssertionError(f"a step missed a kernel: {per_step}")
         for counts in per_step:
             check_warp_work(counts, "a conv-kernel train step")
@@ -5555,6 +5670,17 @@ def spatial_models(smi):
     return launches, summary
 
 
+def f32_fwd_summary(t):
+    """The kernels line's numbers of the float32 forward from check_conv3's
+    totals ``t``: ms, plain_ms, library_ms, bound_ms at the CUDA cores' rate
+    with bound_by and bound_share, vs_library, the 3xTF32 figure, and any
+    --compare-conv-source build's ms."""
+    keys = ("convs", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share",
+            "vs_library", "tf32x3_bound_ms")
+    return {**{k: t[k] for k in keys},
+            **{k: v for k, v in t.items() if k.startswith("compare ")}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5568,6 +5694,11 @@ def main(argv=None) -> int:
                         help="other copies of csrc/warp_gather.cu (an earlier commit's) "
                              "to build and time beside the package's gather kernels in "
                              "phase 2e")
+    parser.add_argument("--compare-conv-source", nargs="+", default=[], metavar="CU",
+                        help="other copies of csrc/conv3.cu (an earlier commit's, whose "
+                             "float32 forward takes the plan of parent_fma_tile) to build "
+                             "and time in turns beside the package's float32 forward in "
+                             "phases 2d and 12b")
     parser.add_argument("--conditioning", action="store_true",
                         help="also print the readings behind phase 8's and 12c's "
                              "card-vs-CPU limits: how far 1 + 1e-7 noise on the scan moves "
@@ -5632,6 +5763,8 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    COMPARE_CONV.update(build_compare_libraries(
+        [(f"{i}:{src}", src, []) for i, src in enumerate(args.compare_conv_source)], "conv3"))
     compare_libs = build_compare_libraries(
         [(f"{i}:{src}", src, []) for i, src in enumerate(args.compare_warp_source)],
         "warp_bounded")
@@ -5686,7 +5819,7 @@ def main(argv=None) -> int:
     log(f"phase 2e(i): {time.perf_counter() - t:.2f} s")
 
     t = phase("3b. VxmDense registration with the conv kernel")
-    conv_launches, conv_ms = register_conv_kernel(moving, fixed)
+    conv_launches, conv_ms, conv_f32_launches = register_conv_kernel(moving, fixed)
     if args.profile:
         with conv_kernel_mode(True):
             profile_call(load_model(str(CHECKPOINT), device="cuda"), moving, fixed)
@@ -5819,7 +5952,8 @@ def main(argv=None) -> int:
     log(f"phase 16: {time.perf_counter() - t:.2f} s")
 
     paths = {"register": launches, "train_step": train_launches,
-             "register_conv": conv_launches, "register_fast_warp": fast_launches,
+             "register_conv": conv_launches, "register_conv_f32": conv_f32_launches,
+             "register_fast_warp": fast_launches,
              "train_step_conv": conv_train_launches,
              "train_step_semisupervised": semi_launches,
              "train_step_semisupervised_conv": semi_conv_launches,
@@ -5863,6 +5997,8 @@ def main(argv=None) -> int:
              # rank 0's sharded step of each other model class on (1, 2)
              **{f"train_step_spatial_{key}": n for key, n in sp16.items()}}
     serving, serving_bwd = rows[0], bwd_rows[0]
+    f32_fwd_rows = [r for r in conv_rows + synth_serve["conv_rows"]
+                    if r["route"] == "cuda_cores"]
     conv_serving = conv_totals[("bfloat16", "fwd")]
     conv_train = {key: conv_totals[("float32", "fwd")][key] + conv_totals[("float32", "dx")][key]
                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -5934,7 +6070,21 @@ def main(argv=None) -> int:
         train_step_conv=conv_train, wgmma_instructions=hgmma,
         # the same sums at SynthMorph's 64-wide U-Net (phase 12b, at the
         # shapes read off its model): 10 forward convs, 9 input gradients
-        synthmorph=synth_serve["conv_totals"])]
+        synthmorph=synth_serve["conv_totals"]), dict(
+        # the float32 forward on the CUDA cores (the same entry point, its
+        # route flag f32_fma); times: the default U-Net's 11 forward convs
+        # summed (phase 2d), bound at the CUDA cores' float32 rate; launches:
+        # the float32 conv-kernel train step's (phase 4b: 11 and 11
+        # recomputed)
+        name="conv3_f32_fwd", route="cuda", source="voxelmorph_tpu_torch/csrc/conv3.cu",
+        replaces="voxelmorph_tpu/ops/pallas_conv.py:124",
+        launches=conv_train_launches["conv_f32_fwd"],
+        launches_by_path={path: n.get("conv_f32_fwd") for path, n in paths.items()},
+        max_abs_err=max(r["max_abs_err"] for r in f32_fwd_rows),
+        fma_chain_equal=all(all(r["fma_chain_equal"].values()) for r in f32_fwd_rows),
+        library_equal_share=min(r["library_equal_share"] for r in f32_fwd_rows),
+        **f32_fwd_summary(conv_totals[("float32", "fwd")]),
+        synthmorph=f32_fwd_summary(synth_serve["conv_totals"]["float32 fwd"]))]
     log("summary: " + json.dumps(dict(
         template={("conv_kernel" if k is True else "cudnn" if k is False else k): {
             key: val for key, val in v.items() if key != "launches"} for k, v in template.items()},

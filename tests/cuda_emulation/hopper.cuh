@@ -7,8 +7,11 @@
 // arrivals and TMA's bytes and completes a phase when both reach zero, and
 // a wait blocks until the phase of the given parity has completed, as on
 // the card. A TMA load copies its box at once, zeros outside the tensor,
-// through the 32-byte swizzle of the destination's shared-memory address,
-// then reports its bytes. A wgmma runs at once and gives each lane its
+// through the 32-byte swizzle of the destination's shared-memory address
+// (or none, as its map says), then reports its bytes (the innermost start
+// coordinate must fall on 16 bytes, as on the card); a 1-D bulk copy
+// likewise, without a swizzle. A
+// wgmma runs at once and gives each lane its
 // outputs in the accumulator layout of mma.m16n8 (lane 4 g + t: rows g and
 // g + 8, columns 8 j + 2 t and 8 j + 2 t + 1 of each n8 block j), reading
 // B's rows through the descriptor (start address, stride between 8-row
@@ -124,7 +127,11 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 inline void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, const int* coord) {
   const uint32_t base = smem_u32(dst);
-  assert(base % 128 == 0 && map->swizzle == CU_TENSOR_MAP_SWIZZLE_32B);
+  assert(base % 128 == 0 && (map->swizzle == CU_TENSOR_MAP_SWIZZLE_32B ||
+                             map->swizzle == CU_TENSOR_MAP_SWIZZLE_NONE));
+  const bool swizzled = map->swizzle == CU_TENSOR_MAP_SWIZZLE_32B;
+  // the card faults on a box whose innermost start is not on 16 bytes
+  assert(((long long)coord[0] * map->elem) % 16 == 0);
   uint32_t n = 1;
   for (int d = 0; d < map->rank; ++d) n *= map->box[d];
   for (uint32_t i = 0; i < n; ++i) {
@@ -137,7 +144,8 @@ inline void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, const int
       inside = inside && c >= 0 && c < (long long)map->dims[d];
       offset += c * (long long)map->strides[d];
     }
-    unsigned char* out = smem_at(swizzle32(base + i * map->elem));
+    const uint32_t at = base + i * map->elem;
+    unsigned char* out = smem_at(swizzled ? swizzle32(at) : at);
     if (inside)
       std::memcpy(out, map->base + offset, map->elem);
     else
@@ -157,6 +165,13 @@ inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0
   assert(map->rank == 3);
   const int coord[3] = {c0, c1, c2};
   tma_load(dst, map, bar, coord);
+}
+
+// a 1-D bulk copy: at once, then its bytes reported
+inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  assert(bytes % 16 == 0 && smem_u32(dst) % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0);
+  std::memcpy(dst, src, bytes);
+  mbar_complete_tx(bar, bytes);
 }
 
 // --- registers ---------------------------------------------------------------

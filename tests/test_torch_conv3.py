@@ -12,6 +12,7 @@ elementwise. The model-level checks are in ``test_torch_conv3_model.py``.
 """
 
 import itertools
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -75,6 +76,71 @@ def test_conv3_same_matches_pallas_kernel(interpret, batch, slope):
                                  bt.detach(), act_slope=slope)
     _assert_allclose(out_cf.movedim(1, -1).numpy(), ref, FWD_ATOL, "channels-first")
     assert conv3.conv3_same_cf.launches == 0
+
+
+def _rn32(v):
+    """The rational ``v`` rounded to the nearest float32 (ties to even),
+    exactly, where it is not below float32's normal range."""
+    if v == 0:
+        return 0.0
+    sign, v = (-1 if v < 0 else 1), abs(v)
+    e = v.numerator.bit_length() - v.denominator.bit_length()
+    e += Fraction(2) ** (e + 1) <= v
+    e -= Fraction(2) ** e > v
+    q = v / Fraction(2) ** (e - 23)
+    n, r = divmod(q.numerator, q.denominator)
+    n += 2 * r > q.denominator or (2 * r == q.denominator and n % 2 == 1)
+    return sign * float(n * Fraction(2) ** (e - 23))
+
+
+def test_fma_is_float32_fma_exactly():
+    """The chain version's FMA (float64 with the sum rounded to odd) rounds
+    each w * x + acc of float32 values once, as fmaf does: on random values,
+    and on sums just past a float32 tie whose float64 rounding lands on the
+    tie (acc = 2^k (1 + m 2^-23), w x = 2^(k-24) (1 + 2^-36)), where
+    rounding the float64 sum to float32 picks the wrong side."""
+    rng = np.random.default_rng(7)
+    n = 400
+    k = rng.integers(-20, 20, size=n).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], size=n)
+    w = np.concatenate([2.0 ** (k - 24) * (1 + 2.0 ** -12), rng.normal(size=n)])
+    x = np.concatenate([sign * (1 - 2.0 ** -12 + 2.0 ** -24),
+                        rng.normal(size=n) * 2.0 ** rng.integers(-3, 3, size=n)])
+    acc = np.concatenate([sign * 2.0 ** k * (1 + rng.integers(0, 2 ** 20, size=n) * 2.0 ** -23),
+                          rng.normal(size=n) * 2.0 ** rng.integers(-30, 30, size=n)])
+    w, x, acc = (a.astype(np.float32) for a in (w, x, acc))
+    got = conv3._fma(torch.from_numpy(w.astype(np.float64) * x),
+                     torch.from_numpy(acc.astype(np.float64))).numpy()
+    want = np.array([_rn32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+                     for a, b, c in zip(w, x, acc)])
+    np.testing.assert_array_equal(got, want)
+    # the float64 sum rounded to float32 misses some of the ties
+    assert ((w.astype(np.float64) * x + acc).astype(np.float32)[:n] != want[:n]).sum() > n // 4
+
+
+@pytest.mark.parametrize("slope", [None, 0.2])
+@pytest.mark.parametrize("batch,ci,co,shape", [(1, 2, 4, (8, 8, 32)), (2, 6, 12, (4, 8, 16))])
+def test_fma_chain_within_tolerance_of_plain_and_pallas_kernel(interpret, batch, ci, co, shape,
+                                                               slope):
+    """conv3_fma_chain, the float32 CUDA-core kernel's plain version (each
+    output one chain of FMAs in cuDNN's order), against conv3_same_cf_plain
+    and the Pallas kernel in interpret mode: the same float32 products
+    summed in other orders, within conv3.kernel_tolerance of each."""
+    x, k, b, _ = _conv_case(batch, ci, co, shape)
+    ref = torch.from_numpy(np.asarray(pallas_conv.conv3_same(
+        *map(jnp.asarray, (x, k, b)), act_slope=slope))).movedim(-1, 1)
+    xt, kt, bt = (torch.from_numpy(a) for a in (x, k, b))
+    chain = conv3.conv3_fma_chain(xt.movedim(-1, 1), kt, bt, slope)
+    plain = conv3.conv3_same_cf_plain(xt.movedim(-1, 1), kt, bt, slope)
+    assert chain.dtype == torch.float32 and chain.shape == plain.shape == ref.shape
+    for other, name in ((plain, "plain"), (ref, "pallas")):
+        err = (chain - other).abs()
+        assert (err <= conv3.kernel_tolerance(other, bt, False)).all(), (name, err.max())
+    assert not torch.equal(chain, plain)  # another order of sums
+    # the planes argument computes those output planes alone
+    planes = [0, shape[0] - 1]
+    assert torch.equal(conv3.conv3_fma_chain(xt.movedim(-1, 1), kt, bt, slope, planes=planes),
+                       chain[:, :, planes])
 
 
 @pytest.mark.parametrize("slope", [None, 0.2])

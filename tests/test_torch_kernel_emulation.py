@@ -18,7 +18,9 @@ sums its products in another order than the plain version's matrix product
 (and in float32 splits them into TF32 parts), so it is held within
 ``conv3.kernel_tolerance``, at several of its plans: both staging routes
 of the input (TMA and the producer's own copies), resident and streamed
-weights, block widths up to 128 and blocks that walk several tiles. This checks the
+weights, block widths up to 128 and blocks that walk several tiles; its
+float32 forward, one chain of FMAs an output in cuDNN's order, must also
+equal ``conv3.conv3_fma_chain`` bit for bit, at plans of its own. This checks the
 kernels' indexing and arithmetic where there is no GPU; the GPU build and
 launch are checked by ``chip_smoke.py``.
 """
@@ -175,44 +177,81 @@ def test_kernels_take_tensors_at_any_float_offset(kernels, nch, halo):
     assert torch.equal(dvol, ref_vol) and torch.equal(dshift, ref_shift)
 
 
-# (batch, ci, co, D, H, W, layout, tile, fma_tile): ragged tiles along x, y
+# (batch, ci, co, D, H, W, layout, tile, fma): ragged tiles along x, y
 # and z; ci and co not multiples of the staged chunk (16 bf16, 8 f32) or of
 # a block width; input channel rows that are whole 16-byte vectors (TMA)
 # and ones that are not (the producer's copies: ci 2, 3, 10, and 10 or 12
 # as the input gradient's); block widths 16, 32, 48 (32 + 16), 64, and 128
-# (the input gradient of 128 -> 64); channels-last inputs and NCDHW ones
-# (one layout copy). tile, the tensor-core plan: "auto" is tile_plan's for
+# (the input gradient of 128 -> 64, and the forward of 8 -> 72);
+# channels-last inputs and NCDHW ones (one layout copy). tile, the
+# tensor-core plan: "auto" is tile_plan's for
 # an H100's 132 SMs, which at these small volumes takes 1 row a warp; a
 # dict overrides it: "sms" the SMs the plan is made for (a few: the rows a
 # warp owns at full width), "team" the warps of a team (4 or 8), "shape"
 # (tz, ty) of the tile (txf what the rows leave), "weights" "resident" or
 # "streamed" (the most stages that fit), "blocks" the persistent grid
-# (fewer blocks than tiles: a block walks several). fma_tile, the float32
-# forward's CUDA-core tile (tz, ty), None for fma_tile_plan's.
+# (fewer blocks than tiles: a block walks several). fma, the float32
+# forward's CUDA-core plan: "auto" is fma_plan's for 132 SMs; a dict
+# overrides it: "ct" the output channels of a warp (8 or 4; "n" those of
+# a tile, default every channel up to 64 and 8 warps; "fx" the tile's width,
+# 32 or, at 8 channels, 16), "shape" (ty, tz),
+# "kc" input channels a stage, "stages" of the ring (default the most that
+# fit), "blocks" the persistent grid.
 CONV_CASES = [pytest.param(*case, id="-".join(map(str, case[:7]))) for case in [
-    (1, 10, 20, 5, 9, 33, "cl", "auto", None),
-    (2, 3, 4, 6, 10, 35, "ncdhw", "auto", None),
-    (1, 16, 10, 7, 9, 34, "cl", {"sms": 4, "blocks": 2}, (1, 2)),
-    (1, 2, 16, 5, 7, 37, "cl", {"shape": (2, 2)}, (2, 2)),
-    (1, 24, 40, 3, 5, 40, "ncdhw", {"shape": (1, 4), "weights": "streamed"}, (2, 4)),
-    (2, 32, 17, 4, 3, 18, "cl", {"shape": (2, 2), "blocks": 3}, (1, 1)),
+    (1, 10, 20, 5, 9, 33, "cl", "auto", "auto"),
+    (2, 3, 4, 6, 10, 35, "ncdhw", "auto", {"ct": 8, "shape": (8, 2), "kc": 8, "stages": 3}),
+    (1, 16, 10, 7, 9, 34, "cl", {"sms": 4, "blocks": 2},
+     {"ct": 8, "shape": (8, 4), "kc": 1, "blocks": 2}),
+    (1, 2, 16, 5, 7, 37, "cl", {"shape": (2, 2)},
+     {"ct": 8, "shape": (16, 4), "stages": 2, "blocks": 1}),
+    (1, 24, 40, 3, 5, 40, "ncdhw", {"shape": (1, 4), "weights": "streamed"},
+     {"ct": 8, "fx": 16}),
+    (2, 32, 17, 4, 3, 18, "cl", {"shape": (2, 2), "blocks": 3}, {"ct": 4, "blocks": 3}),
     (1, 48, 64, 3, 4, 16, "cl", {"sms": 1, "team": 8, "weights": "streamed", "blocks": 1},
-     (2, 8)),
-    (1, 12, 20, 9, 17, 40, "cl", {"sms": 8, "weights": "resident"}, (4, 8)),
+     {"ct": 8}),
+    (1, 12, 20, 9, 17, 40, "cl", {"sms": 8, "weights": "resident"},
+     {"ct": 8, "shape": (16, 2), "blocks": 5}),
     # SynthMorph's 64-wide U-Net: the decoder's skip concat (ci 128, its
     # input gradient 128 wide) and the first block (ci 2)
-    (1, 128, 64, 5, 6, 9, "cl", "auto", (4, 8)),
-    (1, 2, 64, 6, 5, 11, "cl", {"weights": "streamed"}, (4, 8))]]
+    (1, 128, 64, 5, 6, 9, "cl", "auto", {"ct": 8}),
+    (1, 2, 64, 6, 5, 11, "cl", {"weights": "streamed"}, {"ct": 4, "n": 32, "blocks": 4}),
+    # more output channels than a CUDA-core tile takes: groups of 64
+    (1, 8, 72, 4, 5, 20, "cl", "auto", {"ct": 8, "blocks": 2}),
+    # 2 input channels in rows of whole 16-byte runs (W even): the
+    # CUDA-core kernel's input by TMA along the rows
+    (1, 2, 16, 4, 6, 30, "cl", "auto", {"ct": 8, "fx": 16, "blocks": 2})]]
 
 _WEIGHTS = {"resident": [(hs, 0) for hs in (3, 2, 1)],
             "streamed": [(3, 3), (3, 2), (2, 2)]}
 
 
-def _plan(tile, fma_tile, batch, ci, co, D, H, W, dtype, f32_fma):
-    """The plan of a case: the CUDA-core tile, or the tensor-core plan for
+def _fma_plan(fma, batch, ci, co, D, H, W):
+    """The float32 forward's CUDA-core plan of a case: fma_plan's, with the
+    case's overrides."""
+    if fma == "auto":
+        return conv3.fma_plan(batch, ci, co, D, H, W)
+    ct, n, tz, ty, txf, stages, kc, _, blocks = conv3.fma_plan(batch, ci, co, D, H, W,
+                                                               fma.get("sms", 132))
+    if "ct" in fma:
+        ct = fma["ct"]
+        n = fma.get("n", min(-(-co // ct) * ct, 64, 8 * ct))
+        txf = fma.get("fx", 32) // 16
+        vz, vx = conv3._F_LANE[ct]
+        ty, tz = fma.get("shape", (2 * vx // txf, vz))
+    kc = fma.get("kc", kc)
+    tma = ci % 4 == 0 and kc % 4 == 0 or ci == kc == 2 and W % 2 == 0
+    stages = fma.get("stages") or next(
+        st for st in (4, 3, 2)
+        if conv3.fma_smem_bytes(ct, n, tz, ty, kc, st, tma, 16 * txf) <= conv3._SMEM_LIMIT)
+    tiles = batch * -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * -(-co // n)
+    return ct, n, tz, ty, txf, stages, kc, 0, fma.get("blocks", min(tiles, 132))
+
+
+def _plan(tile, fma, batch, ci, co, D, H, W, dtype, f32_fma):
+    """The plan of a case: the CUDA-core plan, or the tensor-core plan for
     a conv of ci -> co channels, tile_plan's with the case's overrides."""
     if f32_fma:
-        return fma_tile or conv3.fma_tile_plan(batch, D, H, co)
+        return _fma_plan(fma, batch, ci, co, D, H, W)
     if tile == "auto":
         return conv3.tile_plan(batch, ci, co, D, H, W, dtype)
     plan = list(conv3.tile_plan(batch, ci, co, D, H, W, dtype, tile.get("sms", 132)))
@@ -250,12 +289,14 @@ def _conv_launch(fn, x, kernel, bias, act_slope, round_conv_first, plan, forward
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("orientation", ["forward", "dx"])
-@pytest.mark.parametrize("batch,ci,co,D,H,W,layout,tile,fma_tile", CONV_CASES)
+@pytest.mark.parametrize("batch,ci,co,D,H,W,layout,tile,fma", CONV_CASES)
 def test_conv_kernel_within_tolerance_of_plain(conv_kernel, batch, ci, co, D, H, W, layout,
-                                               tile, fma_tile, orientation, dtype):
+                                               tile, fma, orientation, dtype):
     """The forward (bias, LeakyReLU, each rounding order) and the dx
     orientation (taps flipped, ci and co swapped, no bias or activation);
-    float32's forward is the CUDA-core kernel, its dx the 3xTF32 one."""
+    float32's forward is the CUDA-core kernel, which must also equal
+    conv3_fma_chain (cuDNN's order of FMAs) bit for bit, its dx the 3xTF32
+    one."""
     rng = np.random.default_rng(ci * co + D)
     kernel = torch.from_numpy((rng.normal(size=(3, 3, 3, ci, co)) * 0.3).astype(np.float32))
     if orientation == "forward":
@@ -271,7 +312,8 @@ def test_conv_kernel_within_tolerance_of_plain(conv_kernel, batch, ci, co, D, H,
     if layout == "cl":
         x = x.contiguous(memory_format=torch.channels_last_3d)
     f32_fma = orientation == "forward" and dtype == torch.float32
-    plan = _plan(tile, fma_tile, batch, *kernel.shape[3:], D, H, W, dtype, f32_fma)
+    plan = _plan(tile, fma, batch, *kernel.shape[3:], D, H, W, dtype, f32_fma)
+    sums = None  # the FMA chains of the float32 forward, for every setting
     for act_slope, round_first in settings:
         copies = conv3.conv3_same_cf.layout_copies
         # the wrapper passes no bias for dx
@@ -286,6 +328,10 @@ def test_conv_kernel_within_tolerance_of_plain(conv_kernel, batch, ci, co, D, H,
         err = (y.float() - plain.float()).abs()
         tol = conv3.kernel_tolerance(plain, bias, round_first)
         assert (err <= tol).all(), (act_slope, round_first, err.max().item())
+        if f32_fma:
+            sums = conv3.fma_chain_sums(x, kernel) if sums is None else sums
+            chain = conv3.conv3_fma_chain(x, kernel, bias, act_slope, round_first, sums=sums)
+            assert torch.equal(y, chain), (act_slope, round_first, (y != chain).sum().item())
         if dtype == torch.bfloat16:
             # the sums differ by ~1e-6 of the terms, which rarely flips a bf16
             # rounding; the other rounding order differs in about a third
@@ -304,11 +350,11 @@ def test_conv_cases_cover_the_kernel_routes():
     direction."""
     seen = set()
     for param in CONV_CASES:
-        batch, ci, co, D, H, W, _layout, tile, fma_tile = param.values
+        batch, ci, co, D, H, W, _layout, tile, fma = param.values
         for c_in, c_out in ((ci, co), (co, ci)):
             for dtype in (torch.bfloat16, torch.float32):
                 mf, n, tz, ty, txf, hs, ws, team_warps, blocks = _plan(
-                    tile, fma_tile, batch, c_in, c_out, D, H, W, dtype, False)
+                    tile, fma, batch, c_in, c_out, D, H, W, dtype, False)
                 tiles = batch * -(-D // tz) * -(-H // ty) * -(-W // (16 * txf)) * -(-c_out // n)
                 seen |= {conv3.staging(c_in, dtype), f"n{n}",
                          f"team{team_warps}-{'resident' if ws == 0 else 'streamed'}",
@@ -319,6 +365,44 @@ def test_conv_cases_cover_the_kernel_routes():
     assert {"tma", "cp.async", "copies", "n16", "n32", "n48", "n64", "n128", "team4-resident",
             "team4-streamed", "team8-resident", "team8-streamed", "mf1", "mf4-bfloat16",
             "mf2-bfloat16", "mf4-float32", "mf2-float32", "walks", "z", "y", "x"} <= seen, seen
+
+
+def test_conv_cases_cover_the_fma_routes():
+    """CONV_CASES reach every route of the float32 CUDA-core kernel: the
+    input by TMA (whole 16-byte channel rows, stages of 4 or 8 channels;
+    or 2 channels in rows of whole 16-byte runs) and by cp.async, both
+    warp widths (8 output channels, 8 x 2 voxels a lane; 4 channels, 4 x
+    1), tiles 32 and 16 wide, 1 to 8 channel warps (3 and 5 too) and of
+    slabs, stages of 1,
+    2, 4 and 8 input channels with a partial last one, rings of 2 to 4
+    stages that wrap, blocks that walk several tiles, several groups of
+    output channels, channels past co in a tile, and a partial tile in
+    every direction."""
+    seen = set()
+    for param in CONV_CASES:
+        batch, ci, co, D, H, W, _layout, tile, fma = param.values
+        ct, n, tz, ty, txf, stages, kc, _, blocks = _plan(tile, fma, batch, ci, co, D, H, W,
+                                                          torch.float32, True)
+        vz, vx = conv3._F_LANE[ct]
+        fx = 16 * txf
+        tiles = batch * -(-D // tz) * -(-H // ty) * -(-W // fx) * -(-co // n)
+        chunks = -(-ci // kc)
+        route = ("tma" if ci % 4 == 0 and kc % 4 == 0 else
+                 "tma rows" if ci == kc == 2 and W % 2 == 0 else "cp.async")
+        seen |= {f"ct{ct}", f"fx{fx}", f"g{n // ct}", f"slabs{ty // (32 * vx // fx) * tz // vz}",
+                 f"kc{kc}", f"stages{stages}", route}
+        seen |= {"partial chunk"} if ci % kc else set()
+        seen |= {"ring wraps"} if -(-tiles // blocks) * chunks > stages else set()
+        seen |= {"walks"} if blocks < tiles else set()
+        seen |= {"groups"} if co > n else set()
+        seen |= {"past co"} if -(-co // n) * n > co else set()
+        seen |= {axis for axis, size, step in (("z", D, tz), ("y", H, ty), ("x", W, fx))
+                 if size % step}
+    assert {"tma", "tma rows", "cp.async", "ct8", "ct4", "fx32", "fx16", "g1", "g2", "g3",
+            "g5", "g8",
+            "slabs1", "slabs2", "slabs4",
+            "kc1", "kc2", "kc4", "kc8", "stages2", "stages3", "stages4", "partial chunk",
+            "ring wraps", "walks", "groups", "past co", "z", "y", "x"} <= seen, seen
 
 
 @pytest.mark.parametrize("change", [dict(n=80), dict(tz=3), dict(mf=2), dict(bf16=2),
@@ -338,6 +422,37 @@ def test_conv_entry_point_refuses_what_it_cannot_run(conv_kernel, change):
     plan = conv3.tile_plan(1, 16, 16, 4, 4, 4, torch.float32)
     y, _operands, args = conv3._kernel_args(x, torch.zeros((3, 3, 3, 16, 16)),
                                             torch.zeros(16), 0.2, False, plan)
+    names = ["x", "w", "bias", "y", "B", "ci", "co", "D", "H", "W", "bf16", "has_act",
+             "slope", "round_first", "f32_fma", "mf", "n", "tz", "ty", "txf", "hstages",
+             "wstages", "team_warps", "blocks"]
+    args = list(args)
+    assert conv_kernel(*args, None) == 0
+    for key, value in change.items():
+        args[names.index(key)] = value
+    assert conv_kernel(*args, None) != 0
+
+
+@pytest.mark.parametrize("change", [dict(mf=16), dict(mf=0), dict(n=20), dict(ty=6),
+                                    dict(tz=3), dict(ty=16, tz=4), dict(hstages=1),
+                                    dict(hstages=5), dict(wstages=3), dict(txf=3),
+                                    dict(txf=0), dict(mf=4, txf=1),
+                                    dict(team_warps=8), dict(blocks=0),
+                                    dict(n=16, ty=32, wstages=8, hstages=4)])
+def test_conv_entry_point_refuses_what_the_cuda_cores_cannot_run(conv_kernel, change):
+    """The float32 forward's CUDA-core route given a plan it has no kernel
+    for: a warp of other than 8 or 4 output channels, a tile of channels
+    that warps of 8 do not fill, rows that are not whole warps' (8 a warp)
+    or planes not whole lanes' (2 at 8 channels), more than 8 consumer
+    warps (32 channels in 2 x 2 slabs), a ring of one stage or of more than
+    4, stages of 3 input channels (1, 2, 4 or 8: a lane's share of a warp's
+    copies), tiles other than 32 or 16 wide (16 only at 8 channels a lane),
+    a tensor-core plan's team, no blocks, and a ring larger
+    than shared memory (4 stages of 8 channels of a 32 x 32 x 2 tile)."""
+    x = torch.zeros((1, 4, 4, 4, 16)).movedim(-1, 1)
+    kernel = torch.zeros((3, 3, 3, 16, 32))
+    plan = (8, 32, 2, 8, 2, 2, 4, 0, 1)
+    y, _operands, args = conv3._kernel_args(x, kernel, torch.zeros(32), 0.2, False, plan,
+                                            f32_fma=True)
     names = ["x", "w", "bias", "y", "B", "ci", "co", "D", "H", "W", "bf16", "has_act",
              "slope", "round_first", "f32_fma", "mf", "n", "tz", "ty", "txf", "hstages",
              "wstages", "team_warps", "blocks"]

@@ -1,6 +1,7 @@
 // Hopper-only helpers (sm_90a) for the kernels of this directory: the
 // warpgroup matrix product (wgmma) with A in registers and B in shared
-// memory, its matrix descriptor, mbarriers, TMA tile loads and setmaxnreg.
+// memory, its matrix descriptor, mbarriers, TMA tile loads, 1-D bulk copies
+// and setmaxnreg.
 //
 // B operands live in shared memory as rows of 32 bytes (16 bfloat16 or 8
 // float32 values along k), one row per column n, in the 32-byte swizzle
@@ -9,6 +10,9 @@
 // shared-memory address is set, which for a buffer aligned to 1024 bytes is
 // tensor_core.cuh's swz_half. A B tile of a product is n consecutive rows
 // from a 256-byte boundary: K-major, 8-row groups 256 bytes apart.
+//
+// A 1-D bulk copy (cp.async.bulk) moves a contiguous block of device memory
+// into shared memory and reports its bytes to an mbarrier, as a TMA load does.
 //
 // wgmma m64nNk16 (bfloat16) or m64nNk8 (TF32) runs on a warpgroup (4
 // warps): warp w of the group supplies rows 16 w .. 16 w + 15 of A in the
@@ -111,6 +115,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory at src to shared memory at
+// dst, both 16-byte aligned, by one thread, the bytes reported to `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

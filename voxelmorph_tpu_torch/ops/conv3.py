@@ -18,7 +18,9 @@ On CUDA tensors the forward, and the input gradient of the backward (the same
 convolution with the taps flipped and ci and co swapped), launch the
 hand-written kernel of ``csrc/conv3.cu`` for every shape, or raise: on the
 tensor cores (``tile_plan`` picks the tile per shape), but for the float32
-forward, which sums on the CUDA cores in cuDNN's order (``_conv3``). On CPU
+forward, which sums on the CUDA cores in cuDNN's order (``_conv3``;
+``fma_plan`` picks its tile, ``conv3_fma_chain`` is its plain version bit
+for bit). On CPU
 tensors they run ``conv3_same_cf_plain``, which follows the Pallas kernel's
 own formulation: im2col of the 27 taps in ``[dz, dy, dx, ci]`` order and one
 matrix product per z-slab chunk. The weight and bias gradients are 27
@@ -53,8 +55,8 @@ from .. import _build
 
 __all__ = ["set_pallas_conv", "pallas_conv_enabled", "set_xla_dw_einsum",
            "xla_dw_einsum_enabled", "jax_kernel_takes", "conv3_same_cf_plain",
-           "kernel_tolerance", "staging", "tile_plan", "fma_tile_plan", "conv3_same_cf",
-           "conv3_input_grad", "conv3_same", "conv3_same_lean_dw"]
+           "conv3_fma_chain", "fma_chain_sums", "kernel_tolerance", "staging", "tile_plan",
+           "fma_plan", "conv3_same_cf", "conv3_input_grad", "conv3_same", "conv3_same_lean_dw"]
 
 _FORCED = None     # process-local override of VXM_PALLAS_CONV
 _FORCED_DW = None  # process-local override of VXM_XLA_DW_EINSUM
@@ -76,6 +78,15 @@ _SMEM_LIMIT = 232448
 # streaming multiprocessors of an H100: the persistent grid where no card
 # says otherwise
 _SMS = 132
+# the float32 forward on the CUDA cores: rows of 36 floats staged, at most 8
+# consumer warps; by the output channels CT of a warp, a lane's (VZ, VX): VX
+# contiguous x-voxels at VZ z planes, and the widths FX of a tile along x it
+# takes (the warp FX / VX lanes along x by 32 VX / FX along y)
+_F_ROW = 36
+_F_WARPS = 8
+_F_LANE = {8: (2, 8), 4: (1, 4)}
+_F_WIDTHS = {8: (32, 16), 4: (32,)}
+_F_MAX_N = 64
 _PLAIN_CHUNK_BYTES = 256 * 2 ** 20
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -197,6 +208,71 @@ def conv3_same_cf_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tenso
         out[:, :, z0:z0 + n] = _epilogue(acc, b, act_slope, out_dtype,
                                          round_conv_first).view(B, co, n, H, W)
     return out
+
+
+def _fma(p: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf``, exactly: ``p`` the float64 product of two float32
+    values (exact: 48 bits), ``acc`` a float32 value in float64. The sum is
+    rounded to odd in float64 (its error by TwoSum; where that is not zero,
+    the sum rounded toward zero with its last bit set), which then rounds to
+    float32 as the exact sum would: 53 bits is more than float32's 24 + 2."""
+    s = p + acc
+    bb = s - p
+    err = (p - (s - bb)).add_(acc - bb)
+    # toward zero: one step down in magnitude where the rounding went away
+    # from zero (the error's sign opposite the sum's); then the last bit
+    bits = s.view(torch.int64)
+    bits.sub_((err * s < 0).long()).bitwise_or_((err != 0).long())
+    return bits.view(torch.float64).float().double()
+
+
+def fma_chain_sums(x: torch.Tensor, kernel: torch.Tensor, planes=None) -> torch.Tensor:
+    """The float32 sums of ``conv3_fma_chain`` before its bias: each output
+    one chain of float32 FMAs over (c, dz, dy, dx) in that order from 0, the
+    zero padding's taps included, each FMA emulated in float64 (``_fma``).
+    x: ``(B, ci, D, H, W)``, kernel ``(3, 3, 3, ci, co)`` rounded to float32;
+    ``planes``: the output z planes (default all). Returns ``(B, co,
+    len(planes), H, W)`` float32."""
+    B, ci, D, H, W = x.shape
+    co = kernel.shape[-1]
+    z = torch.arange(D, device=x.device) if planes is None else \
+        torch.as_tensor(planes, device=x.device)
+    w = kernel.to(torch.float32).double()
+    xp = F.pad(x.to(torch.float32).double(), (1, 1, 1, 1, 1, 1))
+    acc = torch.zeros((B, co, len(z), H, W), dtype=torch.float64, device=x.device)
+    for c in range(ci):
+        for dz in range(3):
+            xs = xp[:, c, z + dz].unsqueeze(1)
+            for dy, dx in itertools.product(range(3), repeat=2):
+                acc = _fma(w[dz, dy, dx, c].view(1, co, 1, 1, 1) * xs[..., dy:dy + H, dx:dx + W],
+                           acc)
+    return acc.float()
+
+
+def conv3_fma_chain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                    act_slope: Optional[float] = 0.2, round_conv_first: bool = False,
+                    planes=None, sums: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The float32 forward as the CUDA-core kernel computes it, bit for bit:
+    each output one chain of float32 FMAs over (c, dz, dy, dx) in that
+    order from 0 (``fma_chain_sums``), then the bias, activation and
+    rounding of ``conv3_same_cf_plain``. The order of cuDNN's float32
+    convolution.
+
+    x: ``(B, ci, D, H, W)``; kernel ``(3, 3, 3, ci, co)`` and bias ``(co,)``
+    (None: zero) are rounded to float32. ``planes``: the output z planes to
+    compute (default all); ``sums``: ``fma_chain_sums`` of the same x,
+    kernel and planes, where the caller has them. Returns ``(B, co,
+    len(planes), H, W)`` float32. 27 ci float64 steps over the outputs: for
+    the tests and the chip check, not a fast path.
+    """
+    B, co = x.shape[0], kernel.shape[-1]
+    if sums is None:
+        sums = fma_chain_sums(x, kernel, planes)
+    if bias is None:
+        bias = x.new_zeros(co, dtype=torch.float32)
+    out = _epilogue(sums.reshape(B, co, -1), bias.to(torch.float32), act_slope, torch.float32,
+                    round_conv_first)
+    return out.view(sums.shape)
 
 
 def kernel_tolerance(plain: torch.Tensor, bias: torch.Tensor,
@@ -355,17 +431,99 @@ def tile_plan(B: int, ci: int, co: int, D: int, H: int, W: int, dtype, sms: int 
     return (*plan, min(tiles, sms))
 
 
-def fma_tile_plan(B: int, D: int, H: int, co: int) -> tuple:
-    """The tile ``(tz, ty)`` of the float32 CUDA-core kernel: blocks of
-    ``tz x ty x 32`` voxels for 16 output channels, the largest that still
-    gives ``_SMS`` blocks along z, y and the channels alone, and no
-    smaller than 2 x 4 x 32 (64 threads): on an H100, blocks of one row of
-    8 threads made the deep convs slower than fewer, larger blocks."""
-    groups = -(-co // _FR)
-    for tz, ty in ((4, 8), (2, 8), (2, 4)):
-        if B * -(-D // tz) * -(-H // ty) * groups >= _SMS:
-            break
-    return tz, ty
+def fma_smem_bytes(ct: int, n: int, tz: int, ty: int, kc: int, stages: int,
+                   tma: bool = False, fx: int = 32) -> int:
+    """Dynamic shared memory of the CUDA-core kernel's launch, as
+    ``csrc/conv3.cu`` lays it out: ``stages`` stages of ``kc`` channel planes
+    of the halo tile (each padded so that the planes fall 32 / kc banks
+    apart) and the chunk's weights for ``n`` output channels, 128-aligned;
+    where the input comes by TMA (``tma``), a landing buffer of the halo
+    tile's kc channels (room for ``fx`` + 4 voxels a row, as rows of 2
+    channels take); then the mbarriers."""
+    plane = (tz + 2) * (ty + 2) * _F_ROW
+    cs = plane + (32 // kc % 32 - plane) % 32
+    stage = -(-(kc * cs * 4 + kc * n * 27 * 4) // 128) * 128
+    land = -(-((tz + 2) * (ty + 2) * (fx + 4) * kc * 4) // 128) * 128 if tma else 0
+    return stages * stage + land + (2 * stages + 2) * 8
+
+
+def _fma_options(B, ci, co, D, H, W):
+    """Each plan of the CUDA-core kernel that fits: for each lane width and
+    tile width FX, a tile of every output channel (up to ``_F_MAX_N`` and 8
+    warps of CT) and FX x (32 VX / FX) sy x VZ sz voxels for each sy x sz
+    slabs the warps allow, with the most stages that fit. Yields ``(ct, n,
+    fx, tz, ty, stages, kc, tiles, warps)``."""
+    kc = min(4, 1 << (ci - 1).bit_length())
+    # the input by TMA: whole 16-byte channel rows, or 2 channels in rows of
+    # whole 16-byte runs
+    tma = ci % 4 == 0 or (ci == 2 and W % 2 == 0)
+    for ct, (vz, vx) in _F_LANE.items():
+        n = min(-(-co // ct) * ct, _F_MAX_N, _F_WARPS * ct)
+        g = n // ct
+        groups = -(-co // n)
+        for fx, slabs in itertools.product(_F_WIDTHS[ct], range(1, _F_WARPS // g + 1)):
+            for sy in range(1, slabs + 1):
+                if slabs % sy:
+                    continue
+                ty, tz = 32 * vx // fx * sy, vz * (slabs // sy)
+                stages = next((st for st in (4, 3, 2) if fma_smem_bytes(
+                    ct, n, tz, ty, kc, st, tma, fx) <= _SMEM_LIMIT), None)
+                if stages is None:
+                    continue
+                tiles = B * -(-D // tz) * -(-H // ty) * -(-W // fx) * groups
+                yield ct, n, fx, tz, ty, stages, kc, tiles, g * slabs
+
+
+@functools.lru_cache(maxsize=None)
+def fma_plan(B: int, ci: int, co: int, D: int, H: int, W: int, sms: int = _SMS) -> tuple:
+    """The CUDA-core kernel's plan for a float32 forward: ``(ct, n, tz, ty,
+    fx / 16, stages, kc, 0, blocks)``, the arguments ``vxm_conv3_fwd`` takes
+    in the slots of the tensor-core plan.
+
+    A tile is fx x ty x tz voxels (fx 32, or 16 at 8 channels a lane) with
+    ``n`` output channels (every one of the conv up to 64; more in groups),
+    ``ct`` of them a consumer warp (8, each lane 8 x 2 voxels, or 4 with 4 x
+    1), ``kc`` input channels a stage in a ring of ``stages``. Of the tile
+    shapes, the one of least estimated
+    time on ``sms`` persistent blocks (one per SM): the rounds of tiles
+    times a tile's FMAs a warp, times the warps an SM scheduler holds
+    (one or two; one hides load latency less: taken as 0.7 of its issue
+    slots against 0.9), over the share of FMAs in the warp's instructions
+    (the loads: 12 for 384 FMAs at ct 8, 5 for 48 at 4), the narrow warps
+    at 0.8 of that again (twice the warps read each staged row, which puts
+    shared memory near its rate; an estimate) and tiles 16 wide at 0.95
+    (their rows' 16-byte loads meet in a bank in half the quarter-warps);
+    then the fewest halo voxels staged in all, then the most warps a block.
+    Small volumes take the narrow warps and small tiles, so that more SMs
+    have one; widths of 112 and 56 tiles 16 wide, which fit them.
+    """
+    best = None
+    for ct, n, fx, tz, ty, stages, kc, tiles, warps in _fma_options(B, ci, co, D, H, W):
+        vz, vx = _F_LANE[ct]
+        per_scheduler = -(-warps // 4)
+        issue = 0.9 if per_scheduler >= 2 else 0.7
+        fma_share = (384 / 396 if ct == 8 else 0.8 * 48 / 53) * (0.95 if fx == 16 else 1.0)
+        cost = -(-tiles // sms) * 27 * ci * vx * vz * ct * per_scheduler / (issue * fma_share)
+        halo = tiles * (tz + 2) * (ty + 2) * (fx + 2)
+        key = (cost, halo, -warps)
+        if best is None or key < best[0]:
+            best = key, (ct, n, tz, ty, fx // 16, stages, kc, 0, min(tiles, sms))
+    if best is None:
+        raise ValueError(f"no tile of the float32 CUDA-core kernel fits {ci} -> {co} channels")
+    return best[1]
+
+
+def _fma_weights(kernel: torch.Tensor, ct: int, n: int, kc: int) -> torch.Tensor:
+    """kernel ``(3, 3, 3, ci, co)`` in float32 laid out as the CUDA-core
+    kernel's stages read it: for each group of ``n`` output channels and
+    each chunk of ``kc`` input channels, ``[kc][n / ct][27 taps][ct]``, zero
+    past ci and co."""
+    ci, co = kernel.shape[3:]
+    groups, nchunks = -(-co // n), -(-ci // kc)
+    w = F.pad(kernel.to(torch.float32).reshape(27, ci, co),
+              (0, groups * n - co, 0, nchunks * kc - ci))
+    w = w.reshape(27, nchunks, kc, groups, n // ct, ct).permute(3, 1, 2, 4, 0, 5)
+    return w.contiguous()
 
 
 def _tf32(t: torch.Tensor) -> torch.Tensor:
@@ -397,23 +555,21 @@ def _kernel_args(x, kernel, bias, act_slope, round_conv_first, plan=None, f32_fm
     co)`` and bias ``(co,)`` (None: no bias) are rounded to x's dtype, the
     kernel laid out for the route taken. ``plan`` is the tensor-core plan
     (default ``tile_plan`` for x's card); ``f32_fma`` runs float32 on the
-    CUDA cores in cuDNN's order instead, ``plan`` then its ``(tz, ty)``
-    (default ``fma_tile_plan``), the kernel ``(27, co, ci)``. Returns ``(y,
-    operands, args)``: the output to be written (channels-last), the tensors
-    that ``args``' pointers point into, to be kept alive until the kernel
-    has run, and the arguments.
+    CUDA cores in cuDNN's order instead, ``plan`` then the CUDA-core plan
+    (default ``fma_plan``). Returns ``(y, operands, args)``: the output to
+    be written (channels-last), the tensors that ``args``' pointers point
+    into, to be kept alive until the kernel has run, and the arguments.
     """
     B, ci, D, H, W = x.shape
     co = kernel.shape[-1]
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.device.type == "cuda" else _SMS)
     if f32_fma:
-        plan = (0, 0, *(plan or fma_tile_plan(B, D, H, co)), 0, 0, 0, 0, 0)
-        w = kernel.to(x.dtype).reshape(27, ci, co).transpose(1, 2).contiguous()
+        plan = plan or fma_plan(B, ci, co, D, H, W, sms)
+        w = _fma_weights(kernel, plan[0], plan[1], plan[6])
     else:
-        if plan is None:
-            sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
-                   if x.device.type == "cuda" else _SMS)
-            plan = tile_plan(B, ci, co, D, H, W, x.dtype, sms,
-                             staging(ci, x.dtype, x.data_ptr()))
+        plan = plan or tile_plan(B, ci, co, D, H, W, x.dtype, sms,
+                                 staging(ci, x.dtype, x.data_ptr()))
         w = _tensor_core_weights(kernel, x.dtype, plan[1])
     b = None if bias is None else bias.to(x.dtype).contiguous()
     y = torch.empty((B, co, D, H, W), dtype=x.dtype, device=x.device, memory_format=_CL)
@@ -441,12 +597,14 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
 def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward):
     """Launch ``csrc/conv3.cu`` on the current stream; raises if the build or
     the launch fails. x is channels-last in memory. A float32 ``forward``
-    runs on the CUDA cores in cuDNN's order (see ``_conv3``)."""
+    runs on the CUDA cores in cuDNN's order (see ``_conv3``), counted also on
+    ``conv3_same_cf.f32_fma_launches``."""
     if x.dtype not in _DTYPES or out_dtype != x.dtype:
         raise TypeError(f"the conv3 kernel takes float32 or bfloat16 and returns the "
                         f"input's dtype; got {x.dtype} -> {out_dtype}")
+    f32_fma = forward and x.dtype == torch.float32
     y, _operands, args = _kernel_args(x, kernel, bias, act_slope, round_conv_first,
-                                      f32_fma=forward and x.dtype == torch.float32)
+                                      f32_fma=f32_fma)
     fn = _build.entry_point("conv3", "vxm_conv3_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
@@ -455,6 +613,7 @@ def _conv3_cuda(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward
                            f"(shape {tuple(x.shape)}, co={kernel.shape[-1]}, {x.dtype}, "
                            f"plan {args[-9:]})")
     conv3_same_cf.launches += 1
+    conv3_same_cf.f32_fma_launches += f32_fma
     return y
 
 
@@ -471,7 +630,9 @@ def _conv3(x, kernel, bias, act_slope, out_dtype, round_conv_first, forward=True
     """The convolution on x's device. On CUDA, bfloat16 runs on the tensor
     cores, and so does the float32 input gradient (``forward`` False, by the
     3xTF32 split); the float32 forward sums on the CUDA cores in the order
-    of cuDNN's float32 convolution, bit for bit: its outputs decide the
+    of cuDNN's float32 convolution, bit for bit (``conv3_fma_chain``), in
+    persistent warp-specialised blocks that hold every output channel of a
+    tile (``fma_plan``): its outputs decide the
     network's discrete branches (LeakyReLU sides, max-pool ties), which a
     forward that rounds otherwise flips, and a train step in the conv-kernel
     mode then departs from one in cuDNN mode by more than its order of sums."""
@@ -596,8 +757,9 @@ def conv3_same_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
     layout is copied once. On CUDA tensors the forward and the input
     gradient launch the CUDA kernel, for every shape, and raise if the build
     or a launch fails; on CPU tensors they run ``conv3_same_cf_plain``.
-    ``conv3_same_cf.launches`` counts kernel launches and
-    ``conv3_same_cf.layout_copies`` the layout copies.
+    ``conv3_same_cf.launches`` counts kernel launches (of them,
+    ``conv3_same_cf.f32_fma_launches`` the float32 forward's, on the CUDA
+    cores) and ``conv3_same_cf.layout_copies`` the layout copies.
     """
     _check(x, kernel, bias)
     out = _Conv3Block.apply(x, kernel.to(x.dtype), bias.to(x.dtype), act_slope,
@@ -606,6 +768,7 @@ def conv3_same_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, *,
 
 
 conv3_same_cf.launches = 0
+conv3_same_cf.f32_fma_launches = 0
 conv3_same_cf.layout_copies = 0
 
 
